@@ -1,0 +1,58 @@
+"""swarm_ode_tpu_torch imports without JAX, and importing it builds nothing."""
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+SLICE_MODULES = (
+    "swarm_ode_tpu_torch",
+    "swarm_ode_tpu_torch.config",
+    "swarm_ode_tpu_torch.definitions",
+    "swarm_ode_tpu_torch.convert",
+    "swarm_ode_tpu_torch.env.layout",
+    "swarm_ode_tpu_torch.env.state",
+    "swarm_ode_tpu_torch.env.queries",
+    "swarm_ode_tpu_torch.env.observations",
+    "swarm_ode_tpu_torch.env.pathfinding",
+    "swarm_ode_tpu_torch.env.step",
+    "swarm_ode_tpu_torch.ops.take",
+    "swarm_ode_tpu_torch.ops._build",
+    "swarm_ode_tpu_torch.ops.bfs_pallas",
+    "swarm_ode_tpu_torch.ops.bfs_bitpack",
+    "swarm_ode_tpu_torch.policies.heuristic",
+)
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'swarm_ode_tpu' or m.startswith('swarm_ode_tpu.'))\n"
+        "assert not bad, bad\n"
+        "from swarm_ode_tpu_torch.ops import _build\n"
+        "assert _build._library is None\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_port_sources_never_name_jax():
+    """No module of the port, nor its GPU scripts, imports jax or the JAX
+    package, even lazily."""
+    scripts = [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_rollout.py"]
+    for path in [*(REPO / "swarm_ode_tpu_torch").rglob("*.py"), *scripts]:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1]
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "flax", "swarm_ode_tpu"), (
+                    f"{path.relative_to(REPO)}: {s}"
+                )

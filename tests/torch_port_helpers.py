@@ -1,0 +1,126 @@
+"""Shared helpers of the tests that hold swarm_ode_tpu_torch against the JAX
+package: JAX structs to numpy dicts, the JAX step's random draws, and
+field-by-field comparison."""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from swarm_ode_tpu.config import EnvConfig as JEnvConfig
+from swarm_ode_tpu.env import step as jstep
+from swarm_ode_tpu.env.layout import build_layout as jbuild_layout
+from swarm_ode_tpu.env.state import make_params as jmake_params
+from swarm_ode_tpu.policies import heuristic as jheur
+from swarm_ode_tpu_torch.config import EnvConfig as PEnvConfig
+from swarm_ode_tpu_torch.env.layout import build_layout as pbuild_layout
+from swarm_ode_tpu_torch.env.state import make_params as pmake_params
+from swarm_ode_tpu_torch.env.step import StepNoise
+
+TINY = "tarware-tiny-3agvs-2pickers-partialobs-v1"
+MEDIUM = "tarware-medium-19agvs-9pickers-partialobs-v1"
+
+# Tiny tensors: keep torch's intra-op threads from oversubscribing the
+# test workers.
+torch.set_num_threads(2)
+
+
+def fields(obj) -> dict:
+    """A flax struct (or any dataclass) as a dict of numpy arrays."""
+    return {
+        f.name: np.asarray(getattr(obj, f.name))
+        for f in dataclasses.fields(obj)
+        if not isinstance(getattr(obj, f.name), (int, float, str, bool))
+    }
+
+
+def both(env_id: str, **overrides):
+    """(JAX params, JAX layout, port params, port layout) for one config."""
+    jcfg = JEnvConfig.from_env_id(env_id, **overrides)
+    pcfg = PEnvConfig.from_env_id(env_id, **overrides)
+    jlay = jbuild_layout(jcfg)
+    play = pbuild_layout(pcfg)
+    return jmake_params(jcfg, jlay), jlay, pmake_params(pcfg, play), play
+
+
+@functools.lru_cache(maxsize=None)
+def _noise_fn(A: int, G: int, S: int, deadlock_break: bool):
+    """Per env: the draws the JAX step makes from `key`, and the key it
+    leaves in the next state (env/step.py:384-386, :603-611)."""
+
+    def one(key):
+        r = jnp.zeros(A, jnp.int32)
+        if deadlock_break:
+            kb, key = jax.random.split(key)
+            r = jax.random.randint(kb, (A,), 0, 4)
+        gs = []
+        for _ in range(G):
+            key, sub = jax.random.split(key)
+            gs.append(jax.random.gumbel(sub, (S,)))
+        return r, jnp.stack(gs), key
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_noise(jparams, keys):
+    """(StepNoise for the port, next keys) from a batch of JAX state keys."""
+    r, g, nxt = _noise_fn(
+        jparams.num_agents, jparams.num_goals, jparams.num_shelves,
+        bool(jparams.deadlock_break),
+    )(keys)
+    noise = StepNoise(
+        break_r=torch.from_numpy(np.array(r)).to(torch.int32),
+        delivery_gumbel=torch.from_numpy(np.asarray(g).copy()),
+    )
+    return noise, nxt
+
+
+def jax_reset_batch(jparams, B: int, seed: int):
+    keys = jax.random.split(jax.random.PRNGKey(seed), B)
+    return jax.jit(jax.vmap(lambda k: jstep.reset(jparams, k)))(keys)
+
+
+def jax_heuristic_init(jparams, B: int):
+    h = jheur.init_state(jparams)
+    return jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), h)
+
+
+def jax_policy_fn(jparams, jlayout):
+    """Jitted, vmapped JAX dispatcher step: (states, hs) -> (actions, hs)."""
+    policy = jheur.make_policy(jparams, jlayout)
+    return jax.jit(jax.vmap(lambda s, h: policy(jparams, s, h)))
+
+
+def jax_step_fn(jparams):
+    """Jitted, vmapped JAX env step: (states, actions) -> (states, r, done, info)."""
+    return jax.jit(jax.vmap(lambda s, a: jstep.step(jparams, s, a)))
+
+
+def numpy_dict(tree: dict) -> dict:
+    return {k: np.asarray(v) for k, v in tree.items()}
+
+
+def torch_dict(tree: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in tree.items()}
+
+
+def assert_same(expected: dict, got: dict, what: str):
+    """Exact equality of every field in `expected` (numpy dicts), dtype
+    included. The JAX state's PRNG `key` has no counterpart in the port."""
+    for k, e in expected.items():
+        if k == "key":
+            continue
+        assert k in got, f"{what}: port lacks {k}"
+        g = got[k]
+        assert g.dtype == e.dtype, f"{what}.{k}: dtype {g.dtype} != {e.dtype}"
+        assert g.shape == e.shape, f"{what}.{k}: shape {g.shape} != {e.shape}"
+        if not np.array_equal(g, e):
+            bad = np.argwhere(g != e)[:5]
+            raise AssertionError(
+                f"{what}.{k}: {int((g != e).sum())} mismatches, first at "
+                f"{bad.tolist()}: port {g[tuple(bad[0])]} vs jax {e[tuple(bad[0])]}"
+            )
