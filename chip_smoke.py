@@ -3,21 +3,41 @@
     python3 chip_smoke.py
 
 Phases, one line of output each (any failure exits non-zero):
-  1. the card: CUDA present, name and power limit from nvidia-smi;
-  2. build the CUDA kernels from csrc/ (timed);
-  3. each kernel against the plain PyTorch version on the card, on real
+  1. the card: CUDA present, name and power limit from nvidia-smi; TF32 off
+     for matrix products and cuDNN (the GDE compares the card with the CPU
+     in full float32);
+  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel;
+     timed);
+  3. K1 and K2 against their plain PyTorch version on the card, on real
      medium env rows and random grids: 0 mismatches required; kernel and
      plain times at the main path's shape (12,672 rows);
-  4. the card against the CPU: 50 steps of dispatcher + step at B = 64 with
+  4. K3 (full-field BFS) against its plain version on all 57,344 rows of
+     real medium states and on random grids: 0 mismatches; its field read
+     at each own cell equals K1's (distance, next hop); times at 57,344
+     rows;
+  5. the card against the CPU: 50 steps of dispatcher + step at B = 64 with
      the same injected draws, every state field, reward and info identical;
-  5. the main path: medium, B = 2048, reset + 200 steps, once in each
+  6. the main path: medium, B = 2048, reset + 200 steps, once in each
      setting of bfs_kernel with the launch counts zeroed before and read
      after: the default (bitpack32) launches the bit-packed kernel once per
      step, "int32" the int32 kernel, neither the other's, and nothing
      overflows the compaction; batched_env_steps_per_sec (default setting,
      best of 3 after a warm-up); both settings give identical states from
      one start state and one set of draws;
-  6. 30 medium episodes of 500 steps: mean deliveries within 10% of the
+  7. the full-field rollout: medium, B = 2048, 200 steps with
+     bfs_backend="xla", counts zeroed before and read after: K3 once per
+     step, K1 and K2 never; steps/s (best of 3); at B = 64 over 50 steps it
+     gives states identical to the compacted path, both at
+     replan_row_frac = 1.0;
+  8. GDE serving: a medium heuristic rollout of B = 512 envs; every step
+     observe (partial, D = 435) -> push_frame -> the server
+     (build_temporal_batch, temporal_edges, apply_batched with euler over
+     t = 0..4 on seeded flagship-shaped weights, newest frame's positions);
+     counts zeroed before the 50 counted steps and read after (K4 six
+     times per ODE step); windows/s and ms per batch; K4 against its plain
+     version at D = 435 and 64 on the served edges, the sparse mean against
+     the dense one on the card, and the card against the CPU on 8 windows;
+  9. 30 medium episodes of 500 steps: mean deliveries within 10% of the
      JAX package's 85.13.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -33,6 +53,12 @@ import time
 
 MEDIUM = "tarware-medium-19agvs-9pickers-partialobs-v1"
 BATCH, STEPS = 2048, 200
+# GDE serving: the flagship's shape (results_data/gde_medium_h4w.stablehlo.json).
+GDE_BATCH, GDE_STEPS, WINDOW, HORIZON, HIDDEN = 512, 50, 5, 4, 64
+# Float32 rounding bound of a sum of up to 32 terms in any order, relative to
+# the sum of the terms' magnitudes: 32 * 2**-23. Atomics (K4) and matrix
+# products sum in other orders than the plain versions.
+SUM_RTOL = 32 * 2.0**-23
 # JAX package, 30 medium episodes (results_data/parity_rejoin_r4.json,
 # parity_at_chosen): deliveries, clashes, stucks per episode.
 JAX_PARITY = {"deliveries": 85.13, "clashes": 189.23, "stucks": 16.63}
@@ -150,6 +176,7 @@ def phase_kernels(layout_cache):
     H, W, iters = pp.grid_h, pp.grid_w, pp.dynamic_bfs_iters
     gen = torch.Generator(device="cuda").manual_seed(1)
     state = heuristic_rollout(pp, lay, BATCH, 40, gen).state
+    layout_cache["state"] = state
     cases = [("medium env rows", H, W, iters, *real_rows(pp, state))]
     cases.append(("medium random", H, W, iters, *random_rows(H, W, 8192, 2, "cuda")))
     cases.append(("medium random, 8 sweeps", H, W, 8, *random_rows(H, W, 4096, 3, "cuda")))
@@ -316,6 +343,243 @@ def phase_main_path(layout_cache):
     return by_setting
 
 
+def random_fields(H, W, K, seed, device):
+    """Random (K, H, W) grids with targets on every edge and corner, one
+    target on a blocked cell (it still starts at 0)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pas = torch.rand(K, H, W, generator=g) < 0.75
+    ty, tx = torch.randint(0, H, (K,), generator=g), torch.randint(0, W, (K,), generator=g)
+    ty[0::5], tx[1::5], ty[2::5], tx[3::5] = 0, 0, H - 1, W - 1
+    pas[torch.arange(K), ty, tx] = True
+    pas[4, ty[4], tx[4]] = False
+    return pas.to(device), (ty * W + tx).int().to(device)
+
+
+def phase_fields(layout_cache):
+    import torch
+
+    from swarm_ode_tpu_torch.env import pathfinding
+    from swarm_ode_tpu_torch.env.state import agent_class
+    from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas
+
+    _, _, pp = layout_cache["medium"]
+    state = layout_cache["state"]
+    H, W, iters = pp.grid_h, pp.grid_w, pp.dynamic_bfs_iters
+    B, A = state.agent_dir.shape
+    xy = state.agent_xy
+    occ = torch.zeros(B, H * W, dtype=torch.bool, device=xy.device)
+    occ.scatter_(1, (xy[..., 1] * W + xy[..., 0]).long(), True)
+    tgt = pp.action_cells[(state.agent_target - 1).clamp(min=0).long()]
+    self_yx = xy.flip(-1)
+    pas = pathfinding.passable_grid(pp, occ.view(B, H, W), tgt, self_yx, agent_class(pp))
+    pas = pas.reshape(B * A, H, W).contiguous()
+    tflat = (tgt[..., 0] * W + tgt[..., 1]).to(torch.int32).reshape(-1).contiguous()
+    cases = [("medium env rows", pas, tflat, iters),
+             ("medium random", *random_fields(H, W, 8192, 12, "cuda"), iters),
+             ("medium random, 8 sweeps", *random_fields(H, W, 4096, 13, "cuda"), 8),
+             ("80x30 random", *random_fields(80, 30, 1024, 14, "cuda"), 64)]
+    max_err = 0
+    for name, p, t, it in cases:
+        ref = bfs_pallas.bfs_dist_plain(p, t, it)
+        got = bfs_pallas.bfs_dist_call(p, t, it)
+        torch.cuda.synchronize()
+        mism = int((got != ref).sum())
+        max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
+        say("fields", f"K3 {name}: {p.shape[0]} rows of {p.shape[1]}x{p.shape[2]}, "
+            f"reached {float((ref < bfs_pallas.INF).float().mean()):.3f}, mismatches {mism}")
+        if mism:
+            fail("fields", f"K3 {name}: {mism} mismatches")
+
+    # The full field read at each own cell equals K1's own-cell query.
+    dist = bfs_pallas.bfs_dist_call(pas, tflat, iters).view(B, A, H, W)
+    d3, nd3 = pathfinding.dist_nextdir_at(pp, dist, pas.view(B, A, H, W), self_yx)
+    d1, nd1 = bfs_bitpack.bitpack_query_call(*real_rows(pp, state), H, W, iters)
+    torch.cuda.synchronize()
+    mism = int(((d3.reshape(-1) != d1) | (nd3.reshape(-1) != nd1)).sum())
+    say("fields", f"K3 field at the own cell vs K1 on the same {B * A} rows: mismatches {mism}")
+    if mism:
+        fail("fields", f"K3 own-cell read differs from K1 on {mism} rows")
+
+    times = {
+        "K3": cuda_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, iters), 20),
+        "plain": cuda_time_ms(lambda: bfs_pallas.bfs_dist_plain(pas, tflat, iters), 5),
+    }
+    say("fields", f"times at {B * A} rows, {H}x{W}, {iters} sweeps: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return times, max_err
+
+
+def phase_full_field(layout_cache):
+    import torch
+
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.state import make_params
+    from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas
+    from swarm_ode_tpu_torch.policies.heuristic import heuristic_rollout
+
+    cfg, lay, _ = layout_cache["medium"]
+    ppx = make_params(dataclasses.replace(cfg, bfs_backend="xla"), lay, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def timed():
+        t0 = time.perf_counter()
+        out = heuristic_rollout(ppx, lay, BATCH, STEPS, gen)
+        torch.cuda.synchronize()
+        if int(out.replan_overflow.sum()):
+            fail("full-field", "replan_overflow is not 0 on the full-field branch")
+        return BATCH * STEPS / (time.perf_counter() - t0), float(out.deliveries.float().mean())
+
+    heuristic_rollout(ppx, lay, BATCH, 20, gen)  # warm-up
+    torch.cuda.synchronize()
+    bfs_pallas.DIST_LAUNCHES = bfs_pallas.LAUNCHES = bfs_bitpack.LAUNCHES = 0
+    runs = [timed()]
+    launches = {"K1": bfs_bitpack.LAUNCHES, "K2": bfs_pallas.LAUNCHES,
+                "K3": bfs_pallas.DIST_LAUNCHES}
+    if launches != {"K1": 0, "K2": 0, "K3": STEPS}:
+        fail("full-field", f"launch counts {launches}, expected K3 {STEPS} and no other")
+    runs += [timed() for _ in range(2)]
+    say("full-field", f"medium B={BATCH}, {STEPS} steps, bfs_backend=xla, launches {launches}; "
+        "runs (steps/s, deliveries per env): "
+        + ", ".join(f"({r:.1f}, {d:.3f})" for r, d in runs))
+    say("full-field", f"full_field_env_steps_per_sec {max(r for r, _ in runs):.1f}")
+
+    # Without compaction both branches run every row: identical rollouts.
+    full = make_params(dataclasses.replace(cfg, bfs_backend="xla", replan_row_frac=1.0), lay, "cuda")
+    comp = make_params(dataclasses.replace(cfg, replan_row_frac=1.0), lay, "cuda")
+    B, T = 64, 50
+    g = torch.Generator(device="cuda").manual_seed(6)
+    start = step_mod.reset(full, B, g)
+    noise = [step_mod.draw_noise(full, B, g) for _ in range(T)]
+    a = heuristic_rollout(full, lay, B, T, state=start, noise=noise, record=True)
+    b = heuristic_rollout(comp, lay, B, T, state=start, noise=noise, record=True)
+    torch.cuda.synchronize()
+    for t, (sa, sb) in enumerate(zip(a.trace, b.trace)):
+        if not (_states_equal(sa[3], sb[3]) and torch_equal(sa[0], sb[0])):
+            fail("full-field", f"full-field and compacted rollouts differ at step {t}")
+    say("full-field", f"B={B}, {T} steps at replan_row_frac=1.0: full-field and compacted "
+        f"states identical on every step ({int(a.deliveries.sum())} deliveries, "
+        f"{int(a.clashes.sum())} clashes)")
+    return launches["K3"]
+
+
+def _bounded_err(got, ref, abs_sum):
+    """(max |got - ref|, whether every element is within SUM_RTOL of its
+    sum of magnitudes, plus 1e-6)."""
+    err = (got - ref).abs()
+    return float(err.max()), bool((err <= SUM_RTOL * abs_sum + 1e-6).all())
+
+
+def phase_gde(layout_cache):
+    import copy
+
+    import torch
+
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.observations import observe
+    from swarm_ode_tpu_torch.graphs import temporal
+    from swarm_ode_tpu_torch.models.gde import GraphODE
+    from swarm_ode_tpu_torch.ops import segment, segment_pallas
+    from swarm_ode_tpu_torch.ops.sage import masked_mean_aggregate
+    from swarm_ode_tpu_torch.policies.heuristic import init_state, make_policy
+    from swarm_ode_tpu_torch.serving import make_gde_fn
+
+    _, lay, pp = layout_cache["medium"]
+    A = pp.num_agents
+    torch.manual_seed(0)
+    model_cpu = GraphODE(435, pp.num_agvs, pp.num_pickers, HIDDEN, "euler")
+    model = copy.deepcopy(model_cpu).cuda()
+    predict = make_gde_fn(model, None, 5.0, HORIZON)
+    predict_cpu = make_gde_fn(model_cpu, None, 5.0, HORIZON)
+    policy = make_policy(pp, lay)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    es = step_mod.reset(pp, GDE_BATCH, gen)
+    h = init_state(pp, GDE_BATCH)
+    w = temporal.init_window(GDE_BATCH, WINDOW, A, 435, device="cuda")
+
+    def env_step(es, h):
+        actions, h = policy(pp, es, h)
+        es, _, _, _ = step_mod.step(pp, es, actions, generator=gen)
+        return es, h
+
+    def serve(es, w):
+        w = temporal.push_frame(w, observe(pp, es))
+        return w, predict(w.obs, w.count)
+
+    for _ in range(WINDOW + 2):  # warm-up: fills every window
+        es, h = env_step(es, h)
+        w, pred = serve(es, w)
+    torch.cuda.synchronize()
+    segment_pallas.LAUNCHES = 0
+    ms = []
+    for _ in range(GDE_STEPS):
+        es, h = env_step(es, h)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, pred = serve(es, w)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = segment_pallas.LAUNCHES
+    # Per batch, one sum of the graph's in-degrees, then one sum of messages
+    # for each of the 3 SAGE layers in each ODE step.
+    expect = GDE_STEPS * (1 + HORIZON * 3)
+    if launches != expect:
+        fail("gde", f"K4 launched {launches} times, expected {expect}")
+    if pred.shape != (GDE_BATCH, HORIZON + 1, A, 2) or not bool(torch.isfinite(pred).all()):
+        fail("gde", f"predictions of shape {tuple(pred.shape)}, finite {bool(torch.isfinite(pred).all())}")
+    mean_ms = sum(ms) / len(ms)
+    say("gde", f"medium B={GDE_BATCH} windows of {WINDOW}x{A}x435, euler t=0..{HORIZON}, "
+        f"{GDE_STEPS} served steps, K4 launches {launches}: ms per batch mean {mean_ms:.3f}, "
+        f"min {min(ms):.3f}, max {max(ms):.3f}; gde_windows_per_sec {GDE_BATCH / mean_ms * 1e3:.1f}")
+
+    # K4 against its plain version on the served graphs' edges, at the
+    # observation width and the hidden width.
+    g = temporal.build_temporal_batch(w.obs, w.count, pp.num_agvs, 5.0)
+    src, dst, valid = temporal.temporal_edges(g)
+    S = GDE_BATCH * WINDOW * A
+    x = w.obs.reshape(S, 435)
+    with torch.no_grad():
+        hid = torch.relu(model.func.conv1.DenseSAGEConv_0.lin_r(x)).contiguous()
+    k4_err, times = 0.0, {}
+    for D, feats in ((435, x), (HIDDEN, hid)):
+        msgs = feats[src.long()]
+        ref = segment_pallas.segment_sum_plain(msgs, dst, S, valid)
+        got = segment_pallas.segment_sum_call(msgs, dst, S, valid)
+        abs_sum = segment_pallas.segment_sum_plain(msgs.abs(), dst, S, valid)
+        err, ok = _bounded_err(got, ref, abs_sum)
+        k4_err = max(k4_err, err)
+        times[D] = (cuda_time_ms(lambda: segment_pallas.segment_sum_call(msgs, dst, S, valid), 20),
+                    cuda_time_ms(lambda: segment_pallas.segment_sum_plain(msgs, dst, S, valid), 20))
+        say("gde", f"K4 vs plain at D={D}: {src.shape[0]} edge slots ({int(valid.sum())} valid) "
+            f"into {S} nodes, max abs err {err:.3e} (tolerance {SUM_RTOL:.2e} x sum of |terms| "
+            f"+ 1e-6), K4 {times[D][0]:.4f} ms, plain {times[D][1]:.4f} ms")
+        if not ok:
+            fail("gde", f"K4 at D={D} is outside the tolerance")
+
+    # The sparse mean (K4) against the dense one on the same graphs.
+    dense_g = temporal.build_temporal_graph(w, pp.num_agvs, 5.0)
+    dense = masked_mean_aggregate(dense_g.x, dense_g.adj, dense_g.node_mask).reshape(S, 435)
+    abs_mean = masked_mean_aggregate(dense_g.x.abs(), dense_g.adj, dense_g.node_mask).reshape(S, 435)
+    sparse = segment.gather_scatter_mean(x, src, dst, valid, S)
+    err, ok = _bounded_err(sparse, dense, abs_mean)
+    say("gde", f"gather_scatter_mean (K4) vs dense masked_mean_aggregate on the card: "
+        f"max abs err {err:.3e}")
+    if not ok:
+        fail("gde", "sparse and dense means differ beyond the tolerance")
+
+    # The card against the CPU on 8 windows, TF32 off.
+    got = predict(w.obs[:8], w.count[:8]).cpu()
+    ref = predict_cpu(w.obs[:8].cpu(), w.count[:8].cpu())
+    err = float((got - ref).abs().max())
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    say("gde", f"card vs CPU, 8 windows: max abs err {err:.3e} on predictions up to "
+        f"{float(ref.abs().max()):.2f} (tolerance {tol:.2e}: 1e-4 of the largest)")
+    if not err <= tol:
+        fail("gde", "card and CPU predictions differ beyond the tolerance")
+    return launches, times, k4_err
+
+
 def phase_distribution(layout_cache):
     import torch
 
@@ -342,11 +606,18 @@ def main() -> None:
     import torch
 
     smi = phase_card()
+    # Full float32 in matrix products and cuDNN: the GDE phase holds the
+    # card to the CPU.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
     layouts = {}
     times, max_err = phase_kernels(layouts)
+    k3_times, k3_err = phase_fields(layouts)
     phase_card_vs_cpu(layouts)
     by_setting = phase_main_path(layouts)
+    k3_launches = phase_full_field(layouts)
+    k4_launches, k4_times, k4_err = phase_gde(layouts)
     phase_distribution(layouts)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
@@ -364,6 +635,19 @@ def main() -> None:
               "swarm_ode_tpu/ops/bfs_bitpack.py:75", "bitpack32 (default)"),
         entry("K2", "bfs_query_int32 (K2)", "swarm_ode_tpu_torch/csrc/bfs_query.cu",
               "swarm_ode_tpu/ops/bfs_pallas.py:79", "int32"),
+        # `launches`: the counted full-field rollout (bfs_backend="xla").
+        {"name": "bfs_dist (K3)", "route": "cuda", "source": "swarm_ode_tpu_torch/csrc/bfs_dist.cu",
+         "replaces": "swarm_ode_tpu/ops/bfs_pallas.py:69", "launches": k3_launches,
+         "path": "full-field rollout, bfs_backend=xla", "max_abs_err": k3_err,
+         "ms": k3_times["K3"], "plain_ms": k3_times["plain"]},
+        # `launches`: the counted GDE serving run; times at D = 435, the
+        # served observation width (D = 64 beside them).
+        {"name": "segment_sum (K4)", "route": "cuda",
+         "source": "swarm_ode_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "swarm_ode_tpu/ops/segment_pallas.py:25", "launches": k4_launches,
+         "path": "GDE serving", "max_abs_err": k4_err, "ms": k4_times[435][0],
+         "plain_ms": k4_times[435][1], "ms_d64": k4_times[HIDDEN][0],
+         "plain_ms_d64": k4_times[HIDDEN][1]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

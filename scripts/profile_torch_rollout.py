@@ -1,19 +1,26 @@
-"""Where the time of the PyTorch port's batched heuristic rollout goes, on one
-CUDA GPU.
+"""Where the time of the PyTorch port's batched heuristic rollout and of its
+GDE server goes, on one CUDA GPU.
 
     python scripts/profile_torch_rollout.py [--steps 50] [--repeats 3]
         [--out chiprun_out/profile_torch_rollout.json]
 
 1. Cells: reset + `steps` steps of dispatcher + step (`heuristic_rollout`)
-   for each (env id, B, bfs_kernel) below, host wall clock around work that
-   ends in torch.cuda.synchronize(), after one warm-up each. The cells run in
-   turn, `repeats` rounds, so a slow spell of the host falls on all of them;
-   every reading is kept. Peak device memory per cell.
+   for each (env id, B, bfs_kernel, bfs_backend) below, host wall clock
+   around work that ends in torch.cuda.synchronize(), after one warm-up
+   each. The cells run in turn, `repeats` rounds, so a slow spell of the
+   host falls on all of them; every reading is kept. Peak device memory
+   per cell.
 2. Medium, B = 2048: dispatcher and step timed apart, synchronised after
    each (host bound, so the sum exceeds the unsynchronised step).
-3. Medium, B = 2048: a torch.profiler trace of 10 steps: device busy time
-   (kernels and copies), kernel launches and copies per step, and the
-   device ops that take the most time.
+3. Medium, B = 2048, compacted and full-field replan: a torch.profiler
+   trace of 10 steps each: device busy time (kernels and copies), kernel
+   launches and copies per step, and the device ops that take the most
+   time.
+4. GDE serving (medium, windows of 5 x 28 x 435, euler over t = 0..4,
+   seeded weights of the flagship's shape) at B = 128, 512 and 2048
+   windows: synchronised ms per batch of its stages (observe + push_frame,
+   graph + edge list, the ODE solve with decoding) and of the whole
+   server, and a torch.profiler trace of 5 batches at B = 512.
 
 Prints one line per reading and writes everything as JSON to --out.
 Imports torch only (not jax).
@@ -35,29 +42,36 @@ import torch  # noqa: E402
 from swarm_ode_tpu_torch.config import EnvConfig  # noqa: E402
 from swarm_ode_tpu_torch.env import step as step_mod  # noqa: E402
 from swarm_ode_tpu_torch.env.layout import build_layout  # noqa: E402
+from swarm_ode_tpu_torch.env.observations import observe  # noqa: E402
 from swarm_ode_tpu_torch.env.state import make_params  # noqa: E402
+from swarm_ode_tpu_torch.graphs import temporal  # noqa: E402
+from swarm_ode_tpu_torch.models.gde import GraphODE  # noqa: E402
 from swarm_ode_tpu_torch.policies.heuristic import (  # noqa: E402
     heuristic_rollout,
     init_state,
     make_policy,
 )
+from swarm_ode_tpu_torch.serving import make_gde_fn  # noqa: E402
 
 MEDIUM = "tarware-medium-19agvs-9pickers-partialobs-v1"
-# (env id, B, bfs_kernel): the first benchmark's candidate cells, then the
-# medium batch sweep.
+# (env id, B, bfs_kernel, bfs_backend): the first benchmark's candidate
+# cells, then the medium batch sweep.
 CELLS = [
-    (MEDIUM, 2048, "auto"),
-    ("tarware-extralarge-19agvs-9pickers-partialobs-v1", 1024, "auto"),
-    (MEDIUM, 2048, "int32"),
-    ("tarware-tiny-3agvs-2pickers-partialobs-v1", 2048, "auto"),
-    (MEDIUM, 64, "auto"),
-    (MEDIUM, 8192, "auto"),
-    (MEDIUM, 32768, "auto"),
+    (MEDIUM, 2048, "auto", "auto"),
+    ("tarware-extralarge-19agvs-9pickers-partialobs-v1", 1024, "auto", "auto"),
+    (MEDIUM, 2048, "int32", "auto"),
+    ("tarware-tiny-3agvs-2pickers-partialobs-v1", 2048, "auto", "auto"),
+    (MEDIUM, 2048, "auto", "xla"),
+    (MEDIUM, 64, "auto", "auto"),
+    (MEDIUM, 8192, "auto", "auto"),
+    (MEDIUM, 32768, "auto", "auto"),
 ]
+GDE_BATCHES = (128, 512, 2048)
+WINDOW, HORIZON = 5, 4
 
 
-def setup(env_id, bfs_kernel):
-    cfg = EnvConfig.from_env_id(env_id, bfs_kernel=bfs_kernel)
+def setup(env_id, bfs_kernel, bfs_backend):
+    cfg = EnvConfig.from_env_id(env_id, bfs_kernel=bfs_kernel, bfs_backend=bfs_backend)
     lay = build_layout(cfg)
     return lay, make_params(cfg, lay, "cuda")
 
@@ -103,7 +117,11 @@ def trace(lay, pp, B, steps, gen):
             actions, h = policy(pp, es, h)
             es, _, _, _ = step_mod.step(pp, es, actions, generator=gen)
         torch.cuda.synchronize()
-    events = prof.events()
+    return _summary(prof.events(), steps)
+
+
+def _summary(events, steps):
+    """Device busy ms, launches, copies and the top device ops per step."""
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in device)
     launches = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
@@ -119,6 +137,76 @@ def trace(lay, pp, B, steps, gen):
         "memcpy_per_step": copies / steps,
         "top_device_ops_ms_per_step": {k[:80]: v / 1e3 / steps for k, v in top},
     }
+
+
+def served_windows(lay, pp, B, gen):
+    """B full windows of a heuristic rollout's observations, and its state."""
+    policy = make_policy(pp, lay)
+    es = step_mod.reset(pp, B, gen)
+    h = init_state(pp, B)
+    w = temporal.init_window(B, WINDOW, pp.num_agents, 435, device="cuda")
+    for _ in range(WINDOW + 2):
+        actions, h = policy(pp, es, h)
+        es, _, _, _ = step_mod.step(pp, es, actions, generator=gen)
+        w = temporal.push_frame(w, observe(pp, es))
+    return w, es
+
+
+def synced_ms(fn, reps):
+    """Mean host ms of fn() ending in a synchronise, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def gde_stages(lay, pp, B, gen, reps=10):
+    """Synchronised ms per batch of the server's stages and of the server."""
+    torch.manual_seed(0)
+    model = GraphODE(435, pp.num_agvs, pp.num_pickers, 64, "euler").cuda()
+    predict = make_gde_fn(model, None, 5.0, HORIZON)
+    w, es = served_windows(lay, pp, B, gen)
+    t_span = torch.arange(HORIZON + 1, dtype=torch.float32, device="cuda")
+    g = temporal.build_temporal_batch(w.obs, w.count, pp.num_agvs, 5.0)
+    edges = temporal.temporal_edges(g)
+
+    def graph():
+        gg = temporal.build_temporal_batch(w.obs, w.count, pp.num_agvs, 5.0)
+        return temporal.temporal_edges(gg)
+
+    def solve():
+        with torch.no_grad():
+            return model.apply_batched(g, t_span, edges=edges)
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {
+        "B": B,
+        "observe_push_ms": synced_ms(lambda: temporal.push_frame(w, observe(pp, es)), reps),
+        "graph_edges_ms": synced_ms(graph, reps),
+        "solve_decode_ms": synced_ms(solve, reps),
+        "server_ms": synced_ms(lambda: predict(w.obs, w.count), reps),
+        "valid_edges": int(edges[2].sum()),
+        "edge_slots": int(edges[2].shape[0]),
+    }
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["windows_per_sec"] = B / out["server_ms"] * 1e3
+    return out, (predict, w)
+
+
+def gde_trace(predict, w, batches=5):
+    """torch.profiler over `batches` calls of the server."""
+    from torch.profiler import ProfilerActivity, profile
+
+    predict(w.obs, w.count)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(batches):
+            predict(w.obs, w.count)
+        torch.cuda.synchronize()
+    return _summary(prof.events(), batches)
 
 
 def main() -> None:
@@ -138,44 +226,58 @@ def main() -> None:
 
     built = {}
     peak = {}
-    for env_id, B, kern in CELLS:
-        lay, pp = built.setdefault((env_id, kern), setup(env_id, kern))
+    for env_id, B, kern, backend in CELLS:
+        lay, pp = built.setdefault((env_id, kern, backend), setup(env_id, kern, backend))
         torch.cuda.reset_peak_memory_stats()
         cell_rate(lay, pp, B, args.steps, gen)  # warm-up
-        peak[(env_id, B, kern)] = torch.cuda.max_memory_allocated() / 2**30
+        peak[(env_id, B, kern, backend)] = torch.cuda.max_memory_allocated() / 2**30
     rates = {c: [] for c in CELLS}
     for _ in range(args.repeats):
-        for env_id, B, kern in CELLS:
-            lay, pp = built[(env_id, kern)]
+        for env_id, B, kern, backend in CELLS:
+            lay, pp = built[(env_id, kern, backend)]
             rate, overflow = cell_rate(lay, pp, B, args.steps, gen)
-            rates[(env_id, B, kern)].append((rate, overflow))
+            rates[(env_id, B, kern, backend)].append((rate, overflow))
     cells = []
-    for (env_id, B, kern), rs in rates.items():
-        lay, pp = built[(env_id, kern)]
+    for (env_id, B, kern, backend), rs in rates.items():
+        lay, pp = built[(env_id, kern, backend)]
         row = {
-            "env_id": env_id, "B": B, "bfs_kernel": pp.bfs_kernel, "steps": args.steps,
+            "env_id": env_id, "B": B, "bfs_kernel": pp.bfs_kernel,
+            "bfs_backend": pp.bfs_backend, "steps": args.steps,
             "steps_per_sec": [r for r, _ in rs],
             "ms_per_step": [1e3 * B / r for r, _ in rs],
             "overflow": [o for _, o in rs],
-            "peak_gib": peak[(env_id, B, kern)],
+            "peak_gib": peak[(env_id, B, kern, backend)],
         }
         cells.append(row)
-        print(f"cell {env_id} B={B} {pp.bfs_kernel}: steps/s "
+        print(f"cell {env_id} B={B} {pp.bfs_kernel} backend={pp.bfs_backend}: steps/s "
               + ", ".join(f"{r:.1f}" for r in row["steps_per_sec"])
               + f"; overflow {row['overflow']}; peak {row['peak_gib']:.3f} GiB", flush=True)
 
-    lay, pp = built[(MEDIUM, "auto")]
+    lay, pp = built[(MEDIUM, "auto", "auto")]
     pol_ms, step_ms = split(lay, pp, 2048, 20, gen)
     print(f"medium B=2048, synchronised ms/step: dispatcher {pol_ms:.3f}, step {step_ms:.3f}",
           flush=True)
     prof = trace(lay, pp, 2048, 10, gen)
     print(f"medium B=2048 trace of 10 steps: {json.dumps(prof)}", flush=True)
+    xlay, xpp = built[(MEDIUM, "auto", "xla")]
+    prof_xla = trace(xlay, xpp, 2048, 10, gen)
+    print(f"medium B=2048 full-field trace of 10 steps: {json.dumps(prof_xla)}", flush=True)
+
+    gde = []
+    for B in GDE_BATCHES:
+        row, server = gde_stages(lay, pp, B, gen)
+        gde.append(row)
+        print(f"gde serving: {json.dumps(row)}", flush=True)
+        if B == 512:
+            gde_prof = gde_trace(*server)
+    print(f"gde serving B=512 trace of 5 batches: {json.dumps(gde_prof)}", flush=True)
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cells": cells,
                    "split_ms_per_step": {"dispatcher": pol_ms, "step": step_ms},
-                   "trace_medium_2048": prof}, f, indent=1)
+                   "trace_medium_2048": prof, "trace_medium_2048_full_field": prof_xla,
+                   "gde_serving": gde, "trace_gde_512": gde_prof}, f, indent=1)
     print(f"wrote {args.out}", flush=True)
 
 

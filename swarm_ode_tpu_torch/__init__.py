@@ -1,12 +1,18 @@
 """PyTorch + CUDA port of swarm_ode_tpu.
 
-The slice ported so far is the batched heuristic warehouse rollout:
-config/layout (copies of the JAX package's numpy code), env state, reset and
-step, the FIFO dispatcher, and the replan BFS with two hand-written CUDA
-kernels (ops/bfs_bitpack.py, ops/bfs_pallas.py; sources under csrc/).
+Ported so far:
+  * the batched heuristic warehouse rollout: config/layout (copies of the
+    JAX package's numpy code), env state, reset and step, the FIFO
+    dispatcher, and the replan BFS, compacted (K1 ops/bfs_bitpack.py, K2
+    ops/bfs_pallas.query_call) or full-field (K3 ops/bfs_pallas.bfs_dist_call,
+    `bfs_backend="xla"`);
+  * GDE trajectory serving, forward only: observations, temporal graphs,
+    SAGE layers (sparse aggregation through the segment sum K4,
+    ops/segment_pallas.py), odeint, the GDE model and `serving.make_gde_fn`.
+The kernels' sources are under csrc/.
 
 This package imports torch and numpy and never jax. Importing it builds
 nothing; the CUDA kernels are compiled at first use on a GPU.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

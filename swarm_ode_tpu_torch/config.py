@@ -66,9 +66,12 @@ class EnvConfig:
     #   "greedy" - one-step lookahead penalizing occupied cells (cheap).
     #   "off"    - keep following the static shortest-path field.
     replan_mode: str = "bfs"
-    # Read by the JAX package only ('auto' | 'pallas' | 'xla'). Kept so that
-    # the same overrides parse; in this package the tensors' device decides
-    # between the CUDA kernels and their plain PyTorch versions.
+    # Replan branch ('auto' | 'pallas' | 'xla'). 'xla' computes every agent's
+    # full distance field (env/pathfinding.dynamic_fields, K3 on the card);
+    # 'auto' and 'pallas' run the compacted own-cell query (K1 or K2 on the
+    # card). Unlike the JAX package, which resolves 'auto' to 'xla' on a CPU
+    # backend, this package does not resolve by platform: the tensors'
+    # device decides only between the CUDA kernels and their plain versions.
     bfs_backend: str = "auto"
     # Replan-BFS relaxation sweeps; 0 = auto (max(32, 2*(H+W)//3)).
     dynamic_bfs_iters: int = 0

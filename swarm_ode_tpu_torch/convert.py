@@ -5,7 +5,9 @@ this package as dicts of numpy arrays keyed by field name (the parity tests
 build them with `np.asarray` on each JAX field), so nothing here imports
 JAX. Batched JAX states (a vmapped reset or scan) carry the leading batch
 dimension the port expects. The JAX state's PRNG `key` has no counterpart
-and is ignored.
+and is ignored. The GDE's flax parameter tree converts to a state dict of
+`models/gde.GraphODE` and back (`gde_params_from_numpy`,
+`gde_params_to_numpy`).
 """
 from __future__ import annotations
 
@@ -87,3 +89,38 @@ def env_state_to(state: EnvState, device) -> EnvState:
     return EnvState(**{
         f.name: getattr(state, f.name).to(device) for f in dataclasses.fields(state)
     })
+
+
+def gde_params_from_numpy(tree: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
+    """A GDE state dict (models/gde.GraphODE) from the JAX model's parameter
+    tree as numpy: {"func": {"params": {convK: {"DenseSAGEConv_0": {"lin_l":
+    {"kernel", "bias"}, "lin_r": {"kernel"}}}}}, "decoder": {"params":
+    {"position_decoder": {"kernel", "bias"}}}}. A flax Dense kernel is
+    (in, out) and a torch Linear weight (out, in): kernels are transposed,
+    biases copied."""
+    out = {}
+
+    def linear(prefix, p):
+        out[f"{prefix}.weight"] = _tensor(np.asarray(p["kernel"]).T, device)
+        if "bias" in p:
+            out[f"{prefix}.bias"] = _tensor(p["bias"], device)
+
+    for conv, layer in tree["func"]["params"].items():
+        for lin, p in layer["DenseSAGEConv_0"].items():
+            linear(f"func.{conv}.DenseSAGEConv_0.{lin}", p)
+    linear("decoder.position_decoder", tree["decoder"]["params"]["position_decoder"])
+    return out
+
+
+def gde_params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of gde_params_from_numpy: a flax-shaped tree of numpy
+    arrays."""
+    tree = {"func": {"params": {}}, "decoder": {"params": {}}}
+    for name, v in state_dict.items():
+        *path, leaf = name.split(".")
+        node = tree[path[0]]["params"]
+        for key in path[1:]:
+            node = node.setdefault(key, {})
+        a = v.detach().cpu().numpy()
+        node["kernel" if leaf == "weight" else "bias"] = a.T.copy() if leaf == "weight" else a
+    return tree

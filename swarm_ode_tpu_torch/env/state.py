@@ -20,6 +20,9 @@ from swarm_ode_tpu_torch.env.layout import Layout, build_layout
 from swarm_ode_tpu_torch.env.queries import cell_max, id_flags, occupant_grid
 
 
+BFS_BACKENDS = ("auto", "pallas", "xla")
+
+
 @dataclasses.dataclass(frozen=True)
 class EnvParams:
     """Static per-layout data: Python scalars plus constant tensors that all
@@ -43,6 +46,7 @@ class EnvParams:
     normalised_coordinates: bool
     observation_type: str
     replan_mode: str
+    bfs_backend: str  # 'xla' = full field (K3); 'auto' | 'pallas' = compacted query
     dynamic_bfs_iters: int
     bfs_kernel: str  # 'int32' | 'bitpack32'
     replan_row_frac: float
@@ -105,6 +109,8 @@ def make_params(
     device: torch.device | str = "cpu",
 ) -> EnvParams:
     """Build the per-layout constants on `device` from a host layout."""
+    if config.bfs_backend not in BFS_BACKENDS:
+        raise ValueError(f"bfs_backend must be one of {BFS_BACKENDS}, got {config.bfs_backend!r}")
     lay = layout or build_layout(config)
     dev = torch.device(device)
     H, W = lay.grid_size
@@ -141,6 +147,7 @@ def make_params(
         normalised_coordinates=config.normalised_coordinates,
         observation_type=config.observation_type,
         replan_mode=config.replan_mode,
+        bfs_backend=config.bfs_backend,
         # Replan-BFS sweep count: 32 on medium, scaled with the H+W diameter
         # on larger maps (same rule as the JAX package).
         dynamic_bfs_iters=(

@@ -21,16 +21,21 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # C entry points and their argument lists: pointers and the stream as
-# c_void_p, sizes as c_int. Every entry point returns a cudaError_t.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# c_void_p, sizes as c_int (c_longlong for an edge count). Every entry point
+# except the *_smem_bytes queries returns a cudaError_t.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "swarm_bitpack_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "swarm_bfs_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "swarm_bfs_query_smem_bytes": (_I,),
+    "swarm_bfs_dist": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "swarm_bfs_dist_smem_bytes": (_I, _I),
+    "swarm_segment_sum": (_P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 _library = None
@@ -41,7 +46,7 @@ def sources() -> list[pathlib.Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -61,19 +66,38 @@ def _nvcc() -> str:
 
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into _build/libswarm_kernels_<hash>.so unless it is
-    there already; the compiler's report (registers, spills) goes beside it
-    as a .log file. Returns the library's path."""
+    there already: one nvcc per source, all started together, then one link.
+    The compiler's report (registers, spills) goes beside the library as a
+    .log file. Returns the library's path."""
     out = BUILD_DIR / f"libswarm_kernels_{source_hash()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    tmp = out.with_name(f"{tag}.so.tmp")
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout)
+        if res.returncode != 0:
+            failed.append(res.stdout)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

@@ -1,5 +1,6 @@
 """Replan BFS in the walled layout: the need-row compaction, the int32
-min-plus kernel (K2) and the plain PyTorch version both kernels are held to.
+min-plus kernels (K2, K3) and the plain PyTorch versions the kernels are held
+to.
 
 Counterpart of `swarm_ode_tpu/ops/bfs_pallas.py` (module name kept so that a
 reader finds it). The (H, W) grid flattens with a wall column appended to
@@ -11,6 +12,10 @@ offsets -1, +1, -Ws, +Ws need no edge masks.
 - `query_plain` is the plain version of K2 and of K1
   (`ops/bfs_bitpack.bitpack_query_call`): the two kernels compute the same
   (distance, next hop) per row, which the JAX package pins bit for bit.
+- `bfs_dist_call` wraps K3, `csrc/bfs_dist.cu`, which replaces the Pallas
+  kernel `_bfs_kernel` (driven by `bfs_dist_pallas`): the same sweeps, the
+  whole (H, W) field out. `bfs_dist_plain` is its plain version; it shares
+  the sweep (`_sweep`) with `query_plain`.
 - `bfs_query_occ_batched` compacts the rows the env step consumes across the
   whole batch, builds their passable masks, runs the query it is given (K1
   or K2, picked by `env/pathfinding.replan_query`) and scatters the
@@ -29,6 +34,8 @@ INF = 1 << 28
 
 # Launches of K2 (csrc/bfs_query.cu) in this process.
 LAUNCHES = 0
+# Launches of K3 (csrc/bfs_dist.cu) in this process.
+DIST_LAUNCHES = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,19 +61,19 @@ def select_next_hop(d, ok):
     return d_here, nd
 
 
-def query_plain(pas, tgt, pos, H: int, W: int, iters: int):
-    """Plain PyTorch replan query: `iters` int32 min-plus sweeps over each
-    row's walled grid, then the own-cell distance and next hop.
+def _sweep(pas, tgt, H: int, W: int, iters: int):
+    """`iters` int32 min-plus sweeps over each row's walled grid.
 
-    pas: (K, n) bool or {0, 1} passable masks, n = H*(W+1); tgt, pos: (K,)
-    walled-flat cells. Returns (d, nd), each (K,) int32.
-    """
+    pas: (K, n) bool or {0, 1} passable masks, n = H*(W+1); tgt: (K,)
+    walled-flat targets (a target outside [0, n) matches no cell). Returns
+    (d, ok): (K, n + 2*Ws) int32 distances and bool passability with one
+    row of unreached, impassable cells on either side of the grid, so the
+    grid proper is [:, Ws:Ws+n]."""
     K, n = pas.shape
     Ws = W + 1
     if n != H * Ws:
         raise ValueError(f"pas has {n} cells per row, expected H*(W+1) = {H * Ws}")
     dev = pas.device
-    # One row of unreached, impassable cells on either side of the grid.
     ok = torch.zeros(K, n + 2 * Ws, dtype=torch.bool, device=dev)
     ok[:, Ws:Ws + n] = pas != 0
     col = torch.arange(n, device=dev)
@@ -80,12 +87,38 @@ def query_plain(pas, tgt, pos, H: int, W: int, iters: int):
             torch.minimum(d[:, 2 * Ws:2 * Ws + n], d[:, :n]),
         )
         d[:, Ws:Ws + n] = torch.where(inner, torch.minimum(cur, best + 1), cur)
-    rows = torch.arange(K, device=dev)
+    return d, ok
+
+
+def query_plain(pas, tgt, pos, H: int, W: int, iters: int):
+    """Plain PyTorch replan query: `iters` int32 min-plus sweeps over each
+    row's walled grid, then the own-cell distance and next hop.
+
+    pas: (K, n) bool or {0, 1} passable masks, n = H*(W+1); tgt, pos: (K,)
+    walled-flat cells. Returns (d, nd), each (K,) int32.
+    """
+    K = pas.shape[0]
+    Ws = W + 1
+    d, ok = _sweep(pas, tgt, H, W, iters)
+    rows = torch.arange(K, device=pas.device)
     base = pos.long() + Ws
     deltas = (0, -Ws, Ws, -1, 1)
     return select_next_hop(
         [d[rows, base + dl] for dl in deltas], [ok[rows, base + dl] for dl in deltas]
     )
+
+
+def bfs_dist_plain(pas, tgt_flat, iters: int):
+    """Plain PyTorch version of K3: (K, H, W) int32 BFS distances, INF where
+    unreached. pas: (K, H, W) bool or {0, 1}; tgt_flat: (K,) plain flat
+    targets y*W + x (one outside [0, H*W) leaves the row unreached)."""
+    K, H, W = pas.shape
+    Ws = W + 1
+    pas_w = torch.cat([pas != 0, torch.zeros(K, H, 1, dtype=torch.bool, device=pas.device)], 2)
+    t = tgt_flat.long()
+    tgt_w = torch.where((t >= 0) & (t < H * W), (t // W) * Ws + t % W, -1)
+    d, _ = _sweep(pas_w.reshape(K, H * Ws), tgt_w, H, W, iters)
+    return d[:, Ws:Ws + H * Ws].reshape(K, H, Ws)[:, :, :W].contiguous()
 
 
 def check_query_args(pas, tgt, pos, H: int, W: int) -> tuple[int, int]:
@@ -132,6 +165,46 @@ def query_call(pas, tgt, pos, H: int, W: int, iters: int):
     _build.check(err, "swarm_bfs_query")
     LAUNCHES += 1
     return d, nd
+
+
+def bfs_dist_call(pas, tgt_flat, iters: int):
+    """K3: the full-field min-plus BFS (`csrc/bfs_dist.cu`) for CUDA tensors,
+    `bfs_dist_plain` for CPU tensors. Counterpart of `bfs_dist_pallas`.
+
+    pas: (K, H, W) bool or uint8 passable masks (targets and own cells
+    already freed); tgt_flat: (K,) int32 flat targets y*W + x. Returns
+    (K, H, W) int32 distances, INF where unreached."""
+    global DIST_LAUNCHES
+    if pas.device.type == "cpu":
+        return bfs_dist_plain(pas, tgt_flat, iters)
+    if pas.dim() != 3:
+        raise ValueError(f"pas must be (K, H, W), got {tuple(pas.shape)}")
+    K, H, W = pas.shape
+    if pas.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"pas must be bool or uint8, got {pas.dtype}")
+    if tgt_flat.shape != (K,) or tgt_flat.dtype != torch.int32:
+        raise ValueError(
+            f"tgt_flat must be ({K},) int32, got {tuple(tgt_flat.shape)} {tgt_flat.dtype}"
+        )
+    if pas.device.type != "cuda" or tgt_flat.device != pas.device:
+        raise ValueError(f"kernel inputs must be CUDA tensors on one device, got "
+                         f"{pas.device} and {tgt_flat.device}")
+    if not (pas.is_contiguous() and tgt_flat.is_contiguous()):
+        raise ValueError("kernel inputs must be contiguous")
+    out = torch.empty(K, H, W, dtype=torch.int32, device=pas.device)
+    if K == 0:
+        return out
+    lib = _build.library()
+    if lib.swarm_bfs_dist_smem_bytes(H, W) > 227 * 1024:
+        raise ValueError(f"an {H}x{W} grid does not fit one block's shared memory")
+    with torch.cuda.device(pas.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.swarm_bfs_dist(
+            pas.data_ptr(), tgt_flat.data_ptr(), out.data_ptr(), K, H, W, int(iters), stream
+        )
+    _build.check(err, "swarm_bfs_dist")
+    DIST_LAUNCHES += 1
+    return out
 
 
 def _passable_rows(occK, classK, tgtK, posK, pick_w, H: int, W: int):

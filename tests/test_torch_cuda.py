@@ -7,7 +7,7 @@ package, so it also runs where only the port's dependencies are installed:
 import pytest
 import torch
 
-from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas
+from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas, segment_pallas
 
 
 def _random_rows(H, W, K, seed):
@@ -27,6 +27,10 @@ def _random_rows(H, W, K, seed):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    # Full f32 matrix products: the comparisons below hold kernels to their
+    # plain versions, not to TF32 rounding.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -54,3 +58,59 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
         bfs_pallas.query_call(pas.t().contiguous().t(), tgt, pos, 9, 8, 4)
     with pytest.raises(ValueError, match="pas must be"):
         bfs_pallas.query_call(pas[:, :-1], tgt, pos, 9, 8, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(25, 22), (9, 8), (80, 30)])
+def test_bfs_dist_matches_plain(cuda, H, W):
+    """K3 vs its plain version: random grids, targets on every edge and
+    corner, one target on a blocked cell; bit for bit."""
+    g = torch.Generator().manual_seed(H * W)
+    K = 256
+    pas = torch.rand(K, H, W, generator=g) < 0.75
+    ty, tx = torch.randint(0, H, (K,), generator=g), torch.randint(0, W, (K,), generator=g)
+    ty[0::5], tx[1::5], ty[2::5], tx[3::5] = 0, 0, H - 1, W - 1
+    pas[torch.arange(K), ty, tx] = True
+    pas[4, ty[4], tx[4]] = False
+    tgt = (ty * W + tx).int()
+    for iters in (4, 40):
+        ref = bfs_pallas.bfs_dist_plain(pas, tgt, iters)
+        before = bfs_pallas.DIST_LAUNCHES
+        got = bfs_pallas.bfs_dist_call(pas.to(cuda), tgt.to(cuda), iters)
+        torch.cuda.synchronize()
+        assert bfs_pallas.DIST_LAUNCHES == before + 1
+        assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 64, 435])
+def test_segment_sum_matches_plain(cuda, D):
+    """K4 vs its plain version, with invalid, negative and too-large ids.
+    Atomics sum in a varying order: 1e-5 absolute on sums of a few dozen
+    unit-scale terms (rounding is ~1e-6 there)."""
+    g = torch.Generator().manual_seed(D)
+    E, N = 5000, 300
+    data = torch.randn(E, D, generator=g)
+    ids = torch.randint(-5, N + 5, (E,), generator=g).int()
+    valid = torch.rand(E, generator=g) < 0.8
+    ref = segment_pallas.segment_sum_plain(data, ids, N, valid)
+    before = segment_pallas.LAUNCHES
+    got = segment_pallas.segment_sum_call(data.to(cuda), ids.to(cuda), N, valid.to(cuda))
+    torch.cuda.synchronize()
+    assert segment_pallas.LAUNCHES == before + 1
+    assert (got.cpu() - ref).abs().max().item() <= 1e-5
+    no_mask = segment_pallas.segment_sum_call(data.to(cuda), ids.to(cuda), N)
+    ref_all = segment_pallas.segment_sum_plain(data, ids, N)
+    assert (no_mask.cpu() - ref_all).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    pas = torch.ones(4, 5, 6, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        bfs_pallas.bfs_dist_call(pas, torch.zeros(4, dtype=torch.int64, device=cuda), 3)
+    data = torch.ones(8, 3, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        segment_pallas.segment_sum_call(data, torch.zeros(8, dtype=torch.int64, device=cuda), 2)
+    with pytest.raises(ValueError, match="float32"):
+        segment_pallas.segment_sum_call(data.double(), torch.zeros(8, dtype=torch.int32, device=cuda), 2)

@@ -21,6 +21,13 @@ SLICE_MODULES = (
     "swarm_ode_tpu_torch.ops.bfs_pallas",
     "swarm_ode_tpu_torch.ops.bfs_bitpack",
     "swarm_ode_tpu_torch.policies.heuristic",
+    "swarm_ode_tpu_torch.graphs.temporal",
+    "swarm_ode_tpu_torch.ops.segment_pallas",
+    "swarm_ode_tpu_torch.ops.segment",
+    "swarm_ode_tpu_torch.ops.sage",
+    "swarm_ode_tpu_torch.ops.odeint",
+    "swarm_ode_tpu_torch.models.gde",
+    "swarm_ode_tpu_torch.serving",
 )
 
 
@@ -42,6 +49,16 @@ def test_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_every_module_of_the_port_is_checked():
+    """SLICE_MODULES names every module of the package, so the import check
+    above covers each one."""
+    found = {
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "swarm_ode_tpu_torch").rglob("*.py") if p.name != "__init__.py"
+    }
+    assert found <= set(SLICE_MODULES), sorted(found - set(SLICE_MODULES))
 
 
 def test_port_sources_never_name_jax():

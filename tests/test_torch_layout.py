@@ -34,10 +34,28 @@ def test_layout_and_params_match_jax(size):
     assert_same(fields(jp), ported, f"{size}.params")
     for f in dataclasses.fields(jp):
         v = getattr(jp, f.name)
-        if isinstance(v, (int, float, str, bool)) and f.name != "bfs_backend":
+        if f.name == "bfs_backend":
+            # The JAX package resolves 'auto' by platform ('xla' on the CPU);
+            # the port keeps 'auto', its compacted branch.
+            assert v == "xla" and ported[f.name] == "auto", (v, ported[f.name])
+        elif isinstance(v, (int, float, str, bool)):
             assert ported[f.name] == v, f.name
     # The bit-packed kernel is the default wherever the walled row fits a word.
     assert pp.bfs_kernel == "bitpack32"
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_explicit_bfs_backend_matches_jax(backend):
+    jp, _, pp, _ = both(TINY, bfs_backend=backend)
+    assert pp.bfs_backend == jp.bfs_backend == backend
+
+
+def test_unknown_bfs_backend_is_refused():
+    from swarm_ode_tpu_torch.config import EnvConfig
+    from swarm_ode_tpu_torch.env.state import make_params
+
+    with pytest.raises(ValueError, match="bfs_backend"):
+        make_params(EnvConfig.from_env_id(TINY, bfs_backend="triton"))
 
 
 def test_params_round_trip_through_numpy():

@@ -1,10 +1,13 @@
 """Shared helpers of the tests that hold swarm_ode_tpu_torch against the JAX
-package: JAX structs to numpy dicts, the JAX step's random draws, and
-field-by-field comparison."""
+package: JAX structs to numpy dicts, the JAX step's random draws,
+field-by-field comparison, and the flagship GDE's weights read out of its
+exported blob."""
 from __future__ import annotations
 
 import dataclasses
 import functools
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -124,3 +127,64 @@ def assert_same(expected: dict, got: dict, what: str):
                 f"{what}.{k}: {int((g != e).sum())} mismatches, first at "
                 f"{bad.tolist()}: port {g[tuple(bad[0])]} vs jax {e[tuple(bad[0])]}"
             )
+
+
+_CONST_RE = re.compile(
+    r"stablehlo\.constant dense<(?P<val>[^>]*)> : tensor<(?P<shape>[0-9x]*)xf32>"
+)
+
+
+def _mlir_constant(val: str, shape) -> np.ndarray:
+    if val.startswith('"0x'):
+        a = np.frombuffer(bytes.fromhex(val[3:-1]), dtype="<f4")
+    else:
+        nums = val.replace("[", " ").replace("]", " ").replace(",", " ").split()
+        a = np.array([float(v) for v in nums], np.float32)
+        if a.size == 1:
+            a = np.full(int(np.prod(shape)), a[0], np.float32)
+    return a.reshape(shape).copy()
+
+
+def gde_params_from_stablehlo(path, hidden_dim: int = 64) -> dict:
+    """The flagship GDE's weights, read out of its exported StableHLO blob
+    (serving.export_gde), as the numpy parameter tree of the JAX model.
+
+    The blob bakes its parameters in as f32 constants of the main function,
+    in the order the forward pass first uses them: per SAGE layer the lin_l
+    kernel, the lin_l bias, the lin_r kernel, then the decoder's kernel and
+    bias. Constants are matched to that list by shape, in order; others
+    (the time span) are skipped. tests/test_torch_gde.py proves the mapping
+    by matching the blob's own predictions."""
+    from jax import export as jax_export
+
+    exported = jax_export.deserialize(pathlib.Path(path).read_bytes())
+    text = exported.mlir_module()
+    main = text[text.index("@main("):]
+    end = main.find("func.func")  # the next function, if any
+    main = main if end < 0 else main[:end]
+    D, H = exported.in_avals[0].shape[-1], hidden_dim
+    names = []
+    for conv, (i, o) in (("conv1", (D, H)), ("conv2", (H, H)), ("conv3", (H, D))):
+        names += [((conv, "lin_l", "kernel"), (i, o)), ((conv, "lin_l", "bias"), (o,)),
+                  ((conv, "lin_r", "kernel"), (i, o))]
+    names += [(("decoder", "kernel"), (D, 2)), (("decoder", "bias"), (2,))]
+    tree = {"func": {"params": {}}, "decoder": {"params": {"position_decoder": {}}}}
+    k = 0
+    for m in _CONST_RE.finditer(main):
+        if k == len(names):
+            break
+        shape = tuple(int(v) for v in m.group("shape").split("x"))
+        key, want = names[k]
+        if shape != want:
+            continue
+        a = _mlir_constant(m.group("val"), shape)
+        if key[0] == "decoder":
+            tree["decoder"]["params"]["position_decoder"][key[1]] = a
+        else:
+            conv, lin, leaf = key
+            node = tree["func"]["params"].setdefault(conv, {"DenseSAGEConv_0": {}})
+            node["DenseSAGEConv_0"].setdefault(lin, {})[leaf] = a
+        k += 1
+    if k != len(names):
+        raise ValueError(f"found {k} of the {len(names)} weight constants in {path}")
+    return tree
