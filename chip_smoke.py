@@ -33,15 +33,27 @@ Phases, one line of output each (any failure exits non-zero):
      observe (partial, D = 435) -> push_frame -> the server
      (build_temporal_batch, temporal_edges, apply_batched with euler over
      t = 0..4 on seeded flagship-shaped weights, newest frame's positions);
-     counts zeroed before the 50 counted steps and read after (K4 six
-     times per ODE step); windows/s and ms per batch; K4 against its plain
-     version at D = 435 and 64 on the served edges, the sparse mean against
-     the dense one on the card, and the card against the CPU on 8 windows;
+     counts zeroed before the 50 counted steps and read after (K4 three
+     times per ODE step, one plan per batch); windows/s and ms per batch.
+     K4 at D = 435 and 64 on the served edges, planned (the served form:
+     sources read through the plan, mean) and general (segment_sum_call):
+     against its plain version on the card within the bucket tolerance and
+     on the CPU (max error printed), two launches bit-identical, one plan
+     and one planned launch with host synchronisation forbidden; times of
+     K4, its plain version, the plan and the library yardsticks
+     (torch.sparse.mm of the CSR adjacency, index_add_ over the valid rows),
+     the bound and the roofline share. The sparse mean against the dense
+     one on the card, and the card against the CPU on 8 windows;
   9. 30 medium episodes of 500 steps: mean deliveries within 10% of the
      JAX package's 85.13.
 
 The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. A kernel's `bound_ms` is the least time the
+card could take for its work at this run's inputs: the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over 67 T/s (float32 outside the tensor cores; the BFS kernels'
+integer operations are counted at that rate too), the H100 SXM data sheet's
+rates at 700 W.
 """
 from __future__ import annotations
 
@@ -59,6 +71,9 @@ GDE_BATCH, GDE_STEPS, WINDOW, HORIZON, HIDDEN = 512, 50, 5, 4, 64
 # the sum of the terms' magnitudes: 32 * 2**-23. Atomics (K4) and matrix
 # products sum in other orders than the plain versions.
 SUM_RTOL = 32 * 2.0**-23
+# H100 SXM data sheet (700 W): device memory rate, float32 rate outside the
+# tensor cores.
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # JAX package, 30 medium episodes (results_data/parity_rejoin_r4.json,
 # parity_at_chosen): deliveries, clashes, stucks per episode.
 JAX_PARITY = {"deliveries": 85.13, "clashes": 189.23, "stucks": 16.63}
@@ -85,6 +100,21 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time for `nbytes` moved and `ops`
+    done, at the card's published peaks."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bfs_bound(pas, out_bytes_per_row: int):
+    """Bound of a BFS kernel on K rows of masks `pas` (one byte a cell): the
+    masks, target and position in, `out_bytes_per_row` out; a BFS visits each
+    cell once (four neighbour reads and an add: 5 operations)."""
+    K = pas.shape[0]
+    return bound(pas.numel() + K * (8 + out_bytes_per_row), 5 * pas.numel())
 
 
 def phase_card():
@@ -217,8 +247,10 @@ def phase_kernels(layout_cache):
         "K2": cuda_time_ms(lambda: bfs_pallas.query_call(pas, tgt, pos, H, W, iters), 50),
         "plain": cuda_time_ms(lambda: bfs_pallas.query_plain(pas, tgt, pos, H, W, iters), 10),
     }
+    times["bound"] = bfs_bound(pas, 8)
     say("kernels", f"times at K={K} rows, n={pas.shape[1]}, {iters} sweeps: "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items() if k != "bound")
+        + f"; bound {times['bound'][0]:.4f} ms ({times['bound'][1]})")
     return times, max_err
 
 
@@ -406,8 +438,11 @@ def phase_fields(layout_cache):
         "K3": cuda_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, iters), 20),
         "plain": cuda_time_ms(lambda: bfs_pallas.bfs_dist_plain(pas, tflat, iters), 5),
     }
+    # In: the masks (one byte a cell) and the target; out: the int32 field.
+    times["bound"] = bound(pas.numel() + 4 * B * A + 4 * pas.numel(), 5 * pas.numel())
     say("fields", f"times at {B * A} rows, {H}x{W}, {iters} sweeps: "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items() if k != "bound")
+        + f"; bound {times['bound'][0]:.4f} ms ({times['bound'][1]})")
     return times, max_err
 
 
@@ -471,7 +506,88 @@ def _bounded_err(got, ref, abs_sum):
     return float(err.max()), bool((err <= SUM_RTOL * abs_sum + 1e-6).all())
 
 
-def phase_gde(layout_cache):
+def check_k4(feats, src, dst, valid, S, smi):
+    """K4 on the served edges at one width D, planned (the served form: the
+    sources read through the plan, mean) and general (segment_sum_call on
+    the gathered messages): against the plain versions, twice for the same
+    bits, with host synchronisation forbidden for one plan and one planned
+    launch; times and bounds. Returns the record's numbers."""
+    import torch
+
+    from swarm_ode_tpu_torch.ops import segment_pallas as sp
+
+    D = feats.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = sp.segment_plan(dst, valid, S, rows=src)
+        got = sp.segment_sum_planned(feats, *plan, mean=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    again = sp.segment_sum_planned(feats, *plan, mean=True)
+    ref = sp.segment_sum_planned_plain(feats, *plan, mean=True)
+    abs_ref = sp.segment_sum_planned_plain(feats.abs(), *plan, mean=True)
+    err, ok = _bounded_err(got, ref, abs_ref)
+    cpu_err = float((got.cpu() - sp.segment_sum_planned_plain(
+        feats.cpu(), *(t.cpu() for t in plan), mean=True)).abs().max())
+
+    keep = valid & (dst >= 0) & (dst < S)
+    msgs = feats[src.long()]
+    gen = sp.segment_sum_call(msgs, dst, S, valid)
+    gen_again = sp.segment_sum_call(msgs, dst, S, valid)
+    gen_ref = sp.segment_sum_plain(msgs, dst, S, valid)
+    gen_err, gen_ok = _bounded_err(gen, gen_ref, sp.segment_sum_plain(msgs.abs(), dst, S, valid))
+    same = torch.equal(got, again) and torch.equal(gen, gen_again)
+    torch.cuda.synchronize()
+
+    # Library yardsticks, never called by the port: the served mean as a CSR
+    # sparse-dense product, the segment sum as index_add_ over valid rows.
+    row, offsets = plan
+    M = int(offsets[-1])
+    counts = offsets.diff()
+    vals = (1.0 / counts.clamp(min=1).float()).repeat_interleave(counts.long(), output_size=M)
+    adj = torch.sparse_csr_tensor(offsets.long(), row[:M].long(), vals, size=(S, feats.shape[0]),
+                                  check_invariants=True)
+    lib_err = float((torch.sparse.mm(adj, feats) - ref).abs().max())
+    sel = keep.nonzero()[:, 0]
+    dv, mv = dst[sel].long(), msgs[sel].contiguous()
+    t = {
+        "ms": cuda_time_ms(lambda: sp.segment_sum_planned(feats, *plan, mean=True), 50),
+        "plain_ms": cuda_time_ms(lambda: sp.segment_sum_planned_plain(feats, *plan, mean=True), 10),
+        "plan_ms": cuda_time_ms(lambda: sp.segment_plan(dst, valid, S, rows=src), 50),
+        "library_ms": cuda_time_ms(lambda: torch.sparse.mm(adj, feats), 50),
+        "general_ms": cuda_time_ms(lambda: sp.segment_sum_call(msgs, dst, S, valid), 20),
+        "general_plain_ms": cuda_time_ms(lambda: sp.segment_sum_plain(msgs, dst, S, valid), 10),
+        "general_library_ms": cuda_time_ms(
+            lambda: torch.zeros(S, D, device=feats.device).index_add_(0, dv, mv), 20),
+    }
+    # Planned: each distinct source row read once, the plan, the output;
+    # an add per (edge, feature) and a division per output element.
+    distinct = int(torch.unique(row[:M]).numel())
+    t["bound_ms"], t["bound_by"] = bound(4 * (distinct * D + M + S + 1 + S * D), M * D + S * D)
+    # General: the valid messages, every id and flag, the output; the adds.
+    E = dst.shape[0]
+    t["general_bound_ms"], _ = bound(4 * M * D + 5 * E + 4 * S * D, M * D)
+    t.update(max_abs_err=max(err, gen_err), cpu_err=cpu_err, lib_err=lib_err)
+    say("gde", f"K4 at D={D}: {E} edge slots ({M} valid, {distinct} distinct sources) into {S} "
+        f"nodes. Planned mean vs plain: max abs err {err:.3e}, vs the plain version on the CPU "
+        f"{cpu_err:.3e} (the design predicts 0); general sum vs plain {gen_err:.3e} (tolerance "
+        f"{SUM_RTOL:.2e} x sum of |terms| + 1e-6); two launches bit-identical: {same}; plan and "
+        f"planned launch with host sync forbidden: passed")
+    say("gde", f"K4 at D={D} times: planned {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, plan "
+        f"{t['plan_ms']:.4f}, torch.sparse.mm {t['library_ms']:.4f}, max abs err {lib_err:.3e}); "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), roofline share "
+        f"{t['bound_ms'] / t['ms']:.3f}; general {t['general_ms']:.4f} ms (plain "
+        f"{t['general_plain_ms']:.4f}, index_add_ {t['general_library_ms']:.4f}, bound "
+        f"{t['general_bound_ms']:.4f}); on {smi}")
+    if not (ok and gen_ok):
+        fail("gde", f"K4 at D={D} is outside the tolerance (planned {ok}, general {gen_ok})")
+    if not same:
+        fail("gde", f"K4 at D={D}: two launches on the same inputs differ")
+    return t
+
+
+def phase_gde(layout_cache, smi):
     import copy
 
     import torch
@@ -521,9 +637,9 @@ def phase_gde(layout_cache):
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     launches = segment_pallas.LAUNCHES
-    # Per batch, one sum of the graph's in-degrees, then one sum of messages
-    # for each of the 3 SAGE layers in each ODE step.
-    expect = GDE_STEPS * (1 + HORIZON * 3)
+    # Per batch one plan, then one K4 launch for each of the 3 SAGE layers in
+    # each ODE step.
+    expect = GDE_STEPS * HORIZON * 3
     if launches != expect:
         fail("gde", f"K4 launched {launches} times, expected {expect}")
     if pred.shape != (GDE_BATCH, HORIZON + 1, A, 2) or not bool(torch.isfinite(pred).all()):
@@ -533,29 +649,13 @@ def phase_gde(layout_cache):
         f"{GDE_STEPS} served steps, K4 launches {launches}: ms per batch mean {mean_ms:.3f}, "
         f"min {min(ms):.3f}, max {max(ms):.3f}; gde_windows_per_sec {GDE_BATCH / mean_ms * 1e3:.1f}")
 
-    # K4 against its plain version on the served graphs' edges, at the
-    # observation width and the hidden width.
     g = temporal.build_temporal_batch(w.obs, w.count, pp.num_agvs, 5.0)
     src, dst, valid = temporal.temporal_edges(g)
     S = GDE_BATCH * WINDOW * A
     x = w.obs.reshape(S, 435)
     with torch.no_grad():
         hid = torch.relu(model.func.conv1.DenseSAGEConv_0.lin_r(x)).contiguous()
-    k4_err, times = 0.0, {}
-    for D, feats in ((435, x), (HIDDEN, hid)):
-        msgs = feats[src.long()]
-        ref = segment_pallas.segment_sum_plain(msgs, dst, S, valid)
-        got = segment_pallas.segment_sum_call(msgs, dst, S, valid)
-        abs_sum = segment_pallas.segment_sum_plain(msgs.abs(), dst, S, valid)
-        err, ok = _bounded_err(got, ref, abs_sum)
-        k4_err = max(k4_err, err)
-        times[D] = (cuda_time_ms(lambda: segment_pallas.segment_sum_call(msgs, dst, S, valid), 20),
-                    cuda_time_ms(lambda: segment_pallas.segment_sum_plain(msgs, dst, S, valid), 20))
-        say("gde", f"K4 vs plain at D={D}: {src.shape[0]} edge slots ({int(valid.sum())} valid) "
-            f"into {S} nodes, max abs err {err:.3e} (tolerance {SUM_RTOL:.2e} x sum of |terms| "
-            f"+ 1e-6), K4 {times[D][0]:.4f} ms, plain {times[D][1]:.4f} ms")
-        if not ok:
-            fail("gde", f"K4 at D={D} is outside the tolerance")
+    k4 = {D: check_k4(feats, src, dst, valid, S, smi) for D, feats in ((435, x), (HIDDEN, hid))}
 
     # The sparse mean (K4) against the dense one on the same graphs.
     dense_g = temporal.build_temporal_graph(w, pp.num_agvs, 5.0)
@@ -577,7 +677,7 @@ def phase_gde(layout_cache):
         f"{float(ref.abs().max()):.2f} (tolerance {tol:.2e}: 1e-4 of the largest)")
     if not err <= tol:
         fail("gde", "card and CPU predictions differ beyond the tolerance")
-    return launches, times, k4_err
+    return launches, k4
 
 
 def phase_distribution(layout_cache):
@@ -617,7 +717,7 @@ def main() -> None:
     phase_card_vs_cpu(layouts)
     by_setting = phase_main_path(layouts)
     k3_launches = phase_full_field(layouts)
-    k4_launches, k4_times, k4_err = phase_gde(layouts)
+    k4_launches, k4 = phase_gde(layouts, smi)
     phase_distribution(layouts)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
@@ -628,8 +728,10 @@ def main() -> None:
                 "launches": sum(c[k] for c in by_setting.values()),
                 "bfs_kernel_setting": setting,
                 "launches_by_setting": {s: c[k] for s, c in by_setting.items()},
-                "max_abs_err": max_err[k], "ms": times[k], "plain_ms": times["plain"]}
+                "max_abs_err": max_err[k], "ms": times[k], "plain_ms": times["plain"],
+                "bound_ms": times["bound"][0], "bound_by": times["bound"][1], "library_ms": None}
 
+    planned, narrow = k4[435], k4[HIDDEN]
     record = {"kernels": [
         entry("K1", "bitpack_query (K1)", "swarm_ode_tpu_torch/csrc/bfs_bitpack.cu",
               "swarm_ode_tpu/ops/bfs_bitpack.py:75", "bitpack32 (default)"),
@@ -639,15 +741,23 @@ def main() -> None:
         {"name": "bfs_dist (K3)", "route": "cuda", "source": "swarm_ode_tpu_torch/csrc/bfs_dist.cu",
          "replaces": "swarm_ode_tpu/ops/bfs_pallas.py:69", "launches": k3_launches,
          "path": "full-field rollout, bfs_backend=xla", "max_abs_err": k3_err,
-         "ms": k3_times["K3"], "plain_ms": k3_times["plain"]},
-        # `launches`: the counted GDE serving run; times at D = 435, the
-        # served observation width (D = 64 beside them).
+         "ms": k3_times["K3"], "plain_ms": k3_times["plain"], "bound_ms": k3_times["bound"][0],
+         "bound_by": k3_times["bound"][1], "library_ms": None},
+        # `launches`: the counted GDE serving run. Times of the served form
+        # (planned, mean) at D = 435, the observation width; library_ms is
+        # torch.sparse.mm of the CSR adjacency. D = 64 and the general form
+        # (segment_sum_call, plan included; index_add_ its yardstick) beside.
         {"name": "segment_sum (K4)", "route": "cuda",
          "source": "swarm_ode_tpu_torch/csrc/segment_sum.cu",
          "replaces": "swarm_ode_tpu/ops/segment_pallas.py:25", "launches": k4_launches,
-         "path": "GDE serving", "max_abs_err": k4_err, "ms": k4_times[435][0],
-         "plain_ms": k4_times[435][1], "ms_d64": k4_times[HIDDEN][0],
-         "plain_ms_d64": k4_times[HIDDEN][1]},
+         "path": "GDE serving", "max_abs_err": max(planned["max_abs_err"], narrow["max_abs_err"]),
+         "ms": planned["ms"], "plain_ms": planned["plain_ms"], "bound_ms": planned["bound_ms"],
+         "bound_by": planned["bound_by"], "library_ms": planned["library_ms"],
+         "plan_ms": planned["plan_ms"],
+         "d64": {k: narrow[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "plan_ms")},
+         "general": {D: {k[len("general_"):]: k4[D][k] for k in
+                         ("general_ms", "general_plain_ms", "general_bound_ms",
+                          "general_library_ms")} for D in k4}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,9 @@ GDE server goes, on one CUDA GPU.
 4. GDE serving (medium, windows of 5 x 28 x 435, euler over t = 0..4,
    seeded weights of the flagship's shape) at B = 128, 512 and 2048
    windows: synchronised ms per batch of its stages (observe + push_frame,
-   graph + edge list, the ODE solve with decoding) and of the whole
-   server, and a torch.profiler trace of 5 batches at B = 512.
+   graph + edge list, the edges' K4 plan, the ODE solve with decoding, plan
+   included) and of the whole server, and a torch.profiler trace of 5
+   batches at B = 512.
 
 Prints one line per reading and writes everything as JSON to --out.
 Imports torch only (not jax).
@@ -46,6 +47,7 @@ from swarm_ode_tpu_torch.env.observations import observe  # noqa: E402
 from swarm_ode_tpu_torch.env.state import make_params  # noqa: E402
 from swarm_ode_tpu_torch.graphs import temporal  # noqa: E402
 from swarm_ode_tpu_torch.models.gde import GraphODE  # noqa: E402
+from swarm_ode_tpu_torch.ops.segment_pallas import segment_plan  # noqa: E402
 from swarm_ode_tpu_torch.policies.heuristic import (  # noqa: E402
     heuristic_rollout,
     init_state,
@@ -186,6 +188,8 @@ def gde_stages(lay, pp, B, gen, reps=10):
         "B": B,
         "observe_push_ms": synced_ms(lambda: temporal.push_frame(w, observe(pp, es)), reps),
         "graph_edges_ms": synced_ms(graph, reps),
+        "plan_ms": synced_ms(lambda: segment_plan(edges[1], edges[2], g.x.shape[:3].numel(),
+                                                  rows=edges[0]), reps),
         "solve_decode_ms": synced_ms(solve, reps),
         "server_ms": synced_ms(lambda: predict(w.obs, w.count), reps),
         "valid_edges": int(edges[2].sum()),

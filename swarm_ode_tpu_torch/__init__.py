@@ -13,6 +13,11 @@ The kernels' sources are under csrc/.
 
 This package imports torch and numpy and never jax. Importing it builds
 nothing; the CUDA kernels are compiled at first use on a GPU.
+
+A function that takes a `device` (`env.state.make_params`,
+`graphs.temporal.init_window`, the `convert.*_from_numpy` loaders) puts its
+tensors on the card unless the caller passes `device="cpu"`; without a card
+such a call raises. Everything else runs where its inputs lie.
 """
 
 __version__ = "0.2.0"

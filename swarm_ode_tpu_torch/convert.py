@@ -40,7 +40,7 @@ def _to_numpy(obj) -> Dict[str, np.ndarray]:
     return out
 
 
-def env_state_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> EnvState:
+def env_state_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> EnvState:
     """EnvState of B envs from (B, ...) arrays keyed by field name."""
     return _from_numpy(EnvState, arrays, device)
 
@@ -49,7 +49,7 @@ def env_state_to_numpy(state: EnvState) -> Dict[str, np.ndarray]:
     return _to_numpy(state)
 
 
-def heuristic_state_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> HeuristicState:
+def heuristic_state_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> HeuristicState:
     return _from_numpy(HeuristicState, arrays, device)
 
 
@@ -57,7 +57,7 @@ def heuristic_state_to_numpy(h: HeuristicState) -> Dict[str, np.ndarray]:
     return _to_numpy(h)
 
 
-def env_params_from_numpy(fields: Mapping[str, object], device="cpu") -> EnvParams:
+def env_params_from_numpy(fields: Mapping[str, object], device="cuda") -> EnvParams:
     """EnvParams from a dict of the JAX EnvParams' fields: numpy arrays for
     the tensors, Python values for the static scalars."""
     dev = torch.device(device)
@@ -91,7 +91,7 @@ def env_state_to(state: EnvState, device) -> EnvState:
     })
 
 
-def gde_params_from_numpy(tree: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
+def gde_params_from_numpy(tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
     """A GDE state dict (models/gde.GraphODE) from the JAX model's parameter
     tree as numpy: {"func": {"params": {convK: {"DenseSAGEConv_0": {"lin_l":
     {"kernel", "bias"}, "lin_r": {"kernel"}}}}}, "decoder": {"params":

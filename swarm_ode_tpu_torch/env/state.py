@@ -106,9 +106,10 @@ class EnvState:
 def make_params(
     config: EnvConfig,
     layout: Optional[Layout] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> EnvParams:
-    """Build the per-layout constants on `device` from a host layout."""
+    """Build the per-layout constants on `device` (the card unless the
+    caller asks for the CPU) from a host layout."""
     if config.bfs_backend not in BFS_BACKENDS:
         raise ValueError(f"bfs_backend must be one of {BFS_BACKENDS}, got {config.bfs_backend!r}")
     lay = layout or build_layout(config)

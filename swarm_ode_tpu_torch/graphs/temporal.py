@@ -56,7 +56,7 @@ class BatchedTemporalGraph:
 
 
 def init_window(batch: int, window: int, num_agents: int, obs_dim: int,
-                device="cpu") -> TemporalWindow:
+                device="cuda") -> TemporalWindow:
     return TemporalWindow(
         obs=torch.zeros(batch, window, num_agents, obs_dim, dtype=torch.float32, device=device),
         count=torch.zeros(batch, dtype=torch.int32, device=device),

@@ -21,7 +21,7 @@ from torch import nn
 from swarm_ode_tpu_torch.graphs.temporal import BatchedTemporalGraph, TemporalGraph
 from swarm_ode_tpu_torch.ops.odeint import odeint
 from swarm_ode_tpu_torch.ops.sage import HomoSAGE, edge_mean_aggregate, temporal_mean_aggregate
-from swarm_ode_tpu_torch.ops.segment import segment_count
+from swarm_ode_tpu_torch.ops.segment_pallas import segment_plan
 
 
 class GraphODEFunc(nn.Module):
@@ -87,16 +87,19 @@ class GraphODE(nn.Module):
         window's dense graph. Aggregation runs on the structured form, or,
         given `edges` from graphs/temporal.temporal_edges(graph), on that
         edge list through K4 (the serving path). The graph is fixed over
-        the solve, so its in-degrees are summed once, not in every layer."""
+        the solve, so the edges are planned once (destination order, the
+        sources as rows; the in-degrees are the plan's offsets), and each
+        aggregation is one K4 launch."""
         if edges is None:
             def aggregate(h):
                 return temporal_mean_aggregate(h, graph.spatial, graph.frame_valid)
         else:
             B, W, N, _ = graph.x.shape
-            deg = segment_count(edges[1], B * W * N, edges[2], graph.x.dtype)
+            src, dst, valid = edges
+            plan = segment_plan(dst, valid, B * W * N, rows=src)
 
             def aggregate(h):
-                return edge_mean_aggregate(h, edges, deg)
+                return edge_mean_aggregate(h, edges, plan)
 
         def f(t, y):
             h = y

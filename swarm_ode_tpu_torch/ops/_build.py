@@ -35,7 +35,7 @@ _SIGNATURES = {
     "swarm_bfs_query_smem_bytes": (_I,),
     "swarm_bfs_dist": (_P, _P, _P, _I, _I, _I, _I, _P),
     "swarm_bfs_dist_smem_bytes": (_I, _I),
-    "swarm_segment_sum": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "swarm_segment_sum": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 _library = None

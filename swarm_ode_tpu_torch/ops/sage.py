@@ -55,16 +55,17 @@ def temporal_mean_aggregate(x, spatial, frame_valid):
     return agg / deg.clamp(min=1.0)[..., None]
 
 
-def edge_mean_aggregate(x, edges, in_degree=None):
+def edge_mean_aggregate(x, edges, plan=None):
     """`temporal_mean_aggregate` over the padded edge list that
     graphs/temporal.temporal_edges builds for the same batch: every node's
     features gathered along its edges and mean-scattered into their
     destinations (K4 on the card). x: (B, W, N, D); edges: (src, dst,
-    valid) over the B*W*N flattened nodes; in_degree: their
-    ops/segment.segment_count, computed here when not given."""
+    valid) over the B*W*N flattened nodes; plan: their
+    ops/segment_pallas.segment_plan with the sources as rows, built here
+    when not given."""
     src, dst, valid = edges
     B, W, N, D = x.shape
-    out = gather_scatter_mean(x.reshape(B * W * N, D), src, dst, valid, B * W * N, in_degree)
+    out = gather_scatter_mean(x.reshape(B * W * N, D), src, dst, valid, B * W * N, plan)
     return out.view(B, W, N, D)
 
 

@@ -2,9 +2,11 @@
 
 Counterpart of `swarm_ode_tpu/ops/segment.py`. Edge lists have a fixed
 capacity and a validity mask (no host synchronisation to size them), and
-every segment sum goes through K4 (`ops/segment_pallas.segment_sum_call`).
-`gather_scatter_mean` is the sparse form of `ops/sage.masked_mean_aggregate`;
-the GDE server aggregates with it (models/gde.py).
+every segment sum goes through K4 (`ops/segment_pallas`).
+`gather_scatter_mean` is the sparse form of `ops/sage.masked_mean_aggregate`:
+one K4 launch over a plan of the edges (`segment_pallas.segment_plan`) that
+reads the sources' rows through the plan, so no message matrix is built.
+The GDE server aggregates with it, planning once per batch (models/gde.py).
 """
 from __future__ import annotations
 
@@ -12,7 +14,11 @@ from typing import Tuple
 
 import torch
 
-from swarm_ode_tpu_torch.ops.segment_pallas import segment_sum_call
+from swarm_ode_tpu_torch.ops.segment_pallas import (
+    segment_plan,
+    segment_sum_call,
+    segment_sum_planned,
+)
 
 
 def adjacency_to_edges(
@@ -68,9 +74,12 @@ def segment_mean(data, segment_ids, num_segments: int, valid=None,
     return s / count.clamp(min=1.0)
 
 
-def gather_scatter_mean(x_src, src, dst, valid, num_dst: int, count=None) -> torch.Tensor:
-    """Sparse equivalent of ops.sage.masked_mean_aggregate: gather source
-    features (S, D) along edges, scatter-mean into `num_dst` destinations
-    (`count`: the destinations' in-degrees, as in `segment_mean`)."""
-    msgs = x_src[src.long()]
-    return segment_mean(msgs, dst, num_dst, valid, count)
+def gather_scatter_mean(x_src, src, dst, valid, num_dst: int, plan=None) -> torch.Tensor:
+    """Sparse equivalent of ops.sage.masked_mean_aggregate: source features
+    (S, D) gathered along the edges and mean-scattered into `num_dst`
+    destinations, in one K4 launch. `plan` is `segment_plan(dst, valid,
+    num_dst, rows=src)`: a caller that averages over one edge list many
+    times builds it once and passes it in."""
+    if plan is None:
+        plan = segment_plan(dst, valid, num_dst, rows=src)
+    return segment_sum_planned(x_src, *plan, mean=True)

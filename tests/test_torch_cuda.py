@@ -86,8 +86,9 @@ def test_bfs_dist_matches_plain(cuda, H, W):
 @pytest.mark.parametrize("D", [1, 64, 435])
 def test_segment_sum_matches_plain(cuda, D):
     """K4 vs its plain version, with invalid, negative and too-large ids.
-    Atomics sum in a varying order: 1e-5 absolute on sums of a few dozen
-    unit-scale terms (rounding is ~1e-6 there)."""
+    Within 1e-5 absolute on sums of a few dozen unit-scale terms; K4 sums
+    each bucket in edge order, as the plain version does on the CPU, so the
+    design expects 0."""
     g = torch.Generator().manual_seed(D)
     E, N = 5000, 300
     data = torch.randn(E, D, generator=g)
@@ -114,3 +115,61 @@ def test_new_wrappers_reject_what_the_kernels_cannot_take(cuda):
         segment_pallas.segment_sum_call(data, torch.zeros(8, dtype=torch.int64, device=cuda), 2)
     with pytest.raises(ValueError, match="float32"):
         segment_pallas.segment_sum_call(data.double(), torch.zeros(8, dtype=torch.int32, device=cuda), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 435])
+def test_planned_segment_sum_matches_plain(cuda, D):
+    """The served form: K4 through a plan whose rows are the edges' sources
+    (the gather fused), sum and mean, planned and launched with no host
+    synchronisation. Bit for bit against the plain version on the CPU (both
+    sum each bucket in edge order and divide by the same count), and two
+    launches give the same bits. The general form (segment_sum_call) too."""
+    g = torch.Generator().manual_seed(D + 1)
+    R, E, N = 700, 5000, 300
+    x = torch.randn(R, D, generator=g)
+    src = torch.randint(0, R, (E,), generator=g).int()
+    dst = torch.randint(-5, N + 5, (E,), generator=g).int()
+    valid = torch.rand(E, generator=g) < 0.8
+    plan = segment_pallas.segment_plan(dst, valid, N, rows=src)
+    xg, dg, vg, sg = (t.to(cuda) for t in (x, dst, valid, src))
+    torch.cuda.synchronize()
+    before = segment_pallas.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gplan = segment_pallas.segment_plan(dg, vg, N, rows=sg)
+        runs = [segment_pallas.segment_sum_planned(xg, *gplan, mean=mean)
+                for mean in (False, True, False, True)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert segment_pallas.LAUNCHES == before + 4
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(gplan, plan))
+    for k, mean in enumerate((False, True)):
+        ref = segment_pallas.segment_sum_planned(x, *plan, mean=mean)
+        assert torch.equal(runs[k], runs[k + 2])
+        assert torch.equal(runs[k].cpu(), ref)
+    msgs = x[src.long()]
+    got = segment_pallas.segment_sum_call(msgs.to(cuda), dst.to(cuda), N, valid.to(cuda))
+    assert torch.equal(got.cpu(), segment_pallas.segment_sum_plain(msgs, dst, N, valid))
+
+
+@pytest.mark.cuda
+def test_planned_wrapper_rejects_what_k4_cannot_take(cuda):
+    data = torch.ones(8, 3, device=cuda)
+    row = torch.zeros(8, dtype=torch.int32, device=cuda)
+    offsets = torch.tensor([0, 4, 8], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="row must be"):
+        segment_pallas.segment_sum_planned(data, row.long(), offsets)
+    with pytest.raises(ValueError, match="offsets must be"):
+        segment_pallas.segment_sum_planned(data, row, offsets.long())
+    with pytest.raises(ValueError, match="offsets must be"):
+        segment_pallas.segment_sum_planned(data, row, offsets[None])
+    with pytest.raises(ValueError, match="offsets must be"):
+        segment_pallas.segment_sum_planned(data, row, offsets[:0])
+    with pytest.raises(ValueError, match="float32"):
+        segment_pallas.segment_sum_planned(data.double(), row, offsets)
+    with pytest.raises(ValueError, match="one device"):
+        segment_pallas.segment_sum_planned(data, row, offsets.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_pallas.segment_sum_planned(torch.ones(3, 8, device=cuda).t(), row, offsets)

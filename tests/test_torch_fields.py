@@ -119,7 +119,7 @@ def test_full_field_step_matches_jax(env_id, B):
     js = jax_reset_batch(jp, B, seed=21)
     jh = jax_heuristic_init(jp, B)
     policy, jstep = jax_policy_fn(jp, jl), jax_step_fn(jp)
-    ps = convert.env_state_from_numpy(fields(js))
+    ps = convert.env_state_from_numpy(fields(js), device="cpu")
     clashes = 0
     for t in range(30):
         actions, jh = policy(js, jh)

@@ -17,12 +17,10 @@ from swarm_ode_tpu.graphs import temporal as jt
 from swarm_ode_tpu.models.gde import GraphODE as JGraphODE
 from swarm_ode_tpu.serving import load_gde
 from swarm_ode_tpu_torch import convert
-from swarm_ode_tpu_torch.env.observations import observe
 from swarm_ode_tpu_torch.graphs import temporal as pt
 from swarm_ode_tpu_torch.models.gde import GraphODE
-from swarm_ode_tpu_torch.policies.heuristic import heuristic_rollout
 from swarm_ode_tpu_torch.serving import make_gde_fn
-from torch_port_helpers import MEDIUM, both, gde_params_from_stablehlo
+from torch_port_helpers import gde_params_from_stablehlo, served_windows
 
 BLOB = pathlib.Path(__file__).resolve().parent.parent / "results_data" / "gde_medium_h4w.stablehlo"
 
@@ -50,7 +48,8 @@ def test_apply_and_apply_batched_match_jax(solver):
     jgraphs = jax.vmap(lambda o, c: jt.build_temporal_graph(jt.TemporalWindow(o, c), 2))(
         jnp.asarray(obs), jnp.asarray(count))
     params = jmodel.init(jax.random.PRNGKey(0), jax.tree.map(lambda a: a[0], jgraphs), t_span)
-    model.load_state_dict(convert.gde_params_from_numpy(jax.tree.map(np.asarray, params)))
+    model.load_state_dict(
+        convert.gde_params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"))
     ref = np.asarray(jax.vmap(lambda g: jmodel.apply(params, g, t_span)["trajectories"])(jgraphs))
     ref_b = np.asarray(jmodel.apply_batched(
         params, jt.build_temporal_batch(jnp.asarray(obs), jnp.asarray(count), 2), t_span
@@ -76,33 +75,10 @@ def test_params_round_trip():
     jmodel, model = _models("euler")
     g = jt.build_temporal_graph(jt.init_window(4, 5, 11), 2)
     tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(3), g, jnp.arange(2.0)))
-    sd = convert.gde_params_from_numpy(tree)
+    sd = convert.gde_params_from_numpy(tree, device="cpu")
     assert set(sd) == set(model.state_dict())
     back = convert.gde_params_to_numpy(sd)
     jax.tree.map(np.testing.assert_array_equal, back, tree)
-
-
-def _served_windows():
-    """Three medium windows of the port's own observations (partial,
-    D = 435) from a seeded heuristic rollout, holding 5, 3 and 1 valid
-    frames; invalid frames are zero."""
-    _, _, pp, lay = both(MEDIUM)
-    B = 3
-    g = torch.Generator().manual_seed(17)
-    state = heuristic_rollout(pp, lay, B, 20, g).state
-    frames = []
-    for _ in range(5):
-        state = heuristic_rollout(pp, lay, B, 1, g, state=state).state
-        frames.append(observe(pp, state))
-    counts = torch.tensor([5, 3, 1], dtype=torch.int32)
-    w = pt.init_window(B, 5, pp.num_agents, frames[0].shape[-1])
-    for k, f in enumerate(frames):
-        # Window b takes the first counts[b] frames only.
-        keep = (k < counts)[:, None, None]
-        pushed = pt.push_frame(w, f)
-        w = pt.TemporalWindow(torch.where(keep[:, None], pushed.obs, w.obs),
-                              torch.where(k < counts, pushed.count, w.count))
-    return w
 
 
 def test_flagship_blob_predictions_match():
@@ -111,11 +87,11 @@ def test_flagship_blob_predictions_match():
     port's own medium windows. 1e-4 absolute (2.9e-5 measured on the CPU):
     float32 sums over 435-wide rows of inputs up to 24, in another order,
     on predicted positions up to ~30 (float32 spacing 1.9e-6 there)."""
-    w = _served_windows()
+    w = served_windows()
     assert w.obs.shape == (3, 5, 28, 435) and w.count.tolist() == [5, 3, 1]
     model = GraphODE(node_dim=435, num_agvs=19, num_pickers=9, hidden_dim=64, ode_solver="euler")
-    predict = make_gde_fn(model, convert.gde_params_from_numpy(gde_params_from_stablehlo(BLOB)),
-                          distance_threshold=5.0, horizon=4)
+    params = convert.gde_params_from_numpy(gde_params_from_stablehlo(BLOB), device="cpu")
+    predict = make_gde_fn(model, params, distance_threshold=5.0, horizon=4)
     blob = load_gde(BLOB.read_bytes())
     batch = predict(w.obs, w.count)
     assert batch.shape == (3, 5, 28, 2)

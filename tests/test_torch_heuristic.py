@@ -34,8 +34,8 @@ def test_policy_matches_jax(env_id, B, T):
     jh = jax_heuristic_init(jp, B)
     assigned = 0
     for t in range(T):
-        ph = convert.heuristic_state_from_numpy(fields(jh))
-        pa, ph = port_policy(pp, convert.env_state_from_numpy(fields(js)), ph)
+        ph = convert.heuristic_state_from_numpy(fields(jh), device="cpu")
+        pa, ph = port_policy(pp, convert.env_state_from_numpy(fields(js), device="cpu"), ph)
         ja, jh = policy(js, jh)
         assert_same({"actions": np.asarray(ja)}, {"actions": pa.numpy()}, f"step {t}")
         assert_same(fields(jh), convert.heuristic_state_to_numpy(ph), f"step {t} h")

@@ -1,7 +1,16 @@
-"""swarm_ode_tpu_torch imports without JAX, and importing it builds nothing."""
+"""swarm_ode_tpu_torch imports without JAX, importing it builds nothing, and
+its entry points default to the card."""
+import importlib
+import inspect
 import pathlib
 import subprocess
 import sys
+
+import pytest
+import torch
+
+from swarm_ode_tpu_torch.config import EnvConfig
+from swarm_ode_tpu_torch.env.state import make_params
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -73,3 +82,48 @@ def test_port_sources_never_name_jax():
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "flax", "swarm_ode_tpu"), (
                     f"{path.relative_to(REPO)}: {s}"
                 )
+
+
+def _device_defaults():
+    """{qualified name: default of its `device` parameter} over every
+    function and method defined in the port's modules."""
+    found = {}
+    for name in SLICE_MODULES:
+        mod = importlib.import_module(name)
+        for obj in vars(mod).values():
+            members = vars(obj).values() if inspect.isclass(obj) else [obj]
+            for fn in members:
+                fn = inspect.unwrap(fn) if callable(fn) else fn
+                if not inspect.isfunction(fn) or fn.__module__ != name:
+                    continue
+                param = inspect.signature(fn).parameters.get("device")
+                if param is not None:
+                    found[f"{name}.{fn.__qualname__}"] = param.default
+    return found
+
+
+def test_device_parameters_default_to_the_card():
+    """A function that takes a `device` puts its tensors on the card unless
+    the caller asks for the CPU: its default is "cuda", or it has none."""
+    found = _device_defaults()
+    assert {k: v for k, v in found.items() if v not in ("cuda", inspect.Parameter.empty)} == {}
+    entry_points = {
+        "swarm_ode_tpu_torch.env.state.make_params",
+        "swarm_ode_tpu_torch.graphs.temporal.init_window",
+        "swarm_ode_tpu_torch.convert.env_state_from_numpy",
+        "swarm_ode_tpu_torch.convert.heuristic_state_from_numpy",
+        "swarm_ode_tpu_torch.convert.env_params_from_numpy",
+        "swarm_ode_tpu_torch.convert.gde_params_from_numpy",
+    }
+    assert {k for k, v in found.items() if v == "cuda"} >= entry_points
+
+
+def test_make_params_without_a_card_raises():
+    """The default device is the card, with no fallback: without one,
+    make_params raises (decided here, when the test runs)."""
+    cfg = EnvConfig.from_env_id("tarware-tiny-3agvs-2pickers-partialobs-v1")
+    if torch.cuda.is_available():
+        assert make_params(cfg).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            make_params(cfg)

@@ -55,12 +55,12 @@ def test_unknown_bfs_backend_is_refused():
     from swarm_ode_tpu_torch.env.state import make_params
 
     with pytest.raises(ValueError, match="bfs_backend"):
-        make_params(EnvConfig.from_env_id(TINY, bfs_backend="triton"))
+        make_params(EnvConfig.from_env_id(TINY, bfs_backend="triton"), device="cpu")
 
 
 def test_params_round_trip_through_numpy():
     _, _, pp, _ = both(TINY)
-    back = convert.env_params_from_numpy(convert.env_params_to_numpy(pp))
+    back = convert.env_params_from_numpy(convert.env_params_to_numpy(pp), device="cpu")
     for f in dataclasses.fields(pp):
         a, b = getattr(pp, f.name), getattr(back, f.name)
         if isinstance(a, torch.Tensor):
@@ -78,7 +78,7 @@ def test_bfs_kernel_auto_rule():
     from swarm_ode_tpu_torch.env.state import make_params
 
     wide = EnvConfig(shelf_rows=1, shelf_columns=9, column_height=2)  # W = 38
-    assert make_params(wide).bfs_kernel == "int32"
+    assert make_params(wide, device="cpu").bfs_kernel == "int32"
 
 
 @pytest.mark.parametrize("env_id", [TINY, MEDIUM])
@@ -90,6 +90,6 @@ def test_occupancy_grids_match_jax(env_id):
     carrying[:, 0] = [1, 2, 3]
     js = js.replace(agent_carrying=jax.numpy.asarray(carrying))
     ref = jax.vmap(lambda s: jax_occupancy_grids(jp, s))(js)
-    got = occupancy_grids(pp, convert.env_state_from_numpy(fields(js)))
+    got = occupancy_grids(pp, convert.env_state_from_numpy(fields(js), device="cpu"))
     for name, a, b in zip(("agv", "picker", "shelf", "carried"), ref, got):
         assert np.array_equal(np.asarray(a), b.numpy()), name

@@ -56,7 +56,7 @@ def test_observe_matches_jax(case):
     jp, _, pp, _ = both(env_id, **overrides)
     js = _random_states(jp, 4, seed=13)
     ref = np.asarray(jax.jit(jax.vmap(lambda s: jobserve(jp, s)))(js))
-    got = observe(pp, convert.env_state_from_numpy(fields(js)))
+    got = observe(pp, convert.env_state_from_numpy(fields(js), device="cpu"))
     assert got.dtype == torch.float32 and got.shape == ref.shape
     np.testing.assert_array_equal(got.numpy(), ref)
     assert max(obs_lengths(pp)) == ref.shape[-1]

@@ -62,7 +62,8 @@ def test_gde_field_matches_jax(method, substeps):
         ref = jodeint(lambda t, y: jmodel.func.apply(params["func"], t, y, jg.adj, jg.node_mask),
                       jg.x, jnp.asarray(T_SPAN), method=method, substeps=substeps)
     model = GraphODE(node_dim=D, num_agvs=2, hidden_dim=8)
-    model.load_state_dict(convert.gde_params_from_numpy(jax.tree.map(np.asarray, params)))
+    model.load_state_dict(
+        convert.gde_params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"))
     adj, mask, x = (torch.from_numpy(np.array(a)) for a in (jg.adj, jg.node_mask, jg.x))
     with torch.no_grad():
         got = odeint(lambda t, y: model.func(t, y, adj, mask), x,

@@ -53,7 +53,7 @@ def test_rollout_matches_jax_scan():
     np.testing.assert_array_equal(np.asarray(keys), np.asarray(js_T.key))
 
     out = heuristic_rollout(
-        pp, pl, B, T, state=convert.env_state_from_numpy(fields(js0)), noise=noise,
+        pp, pl, B, T, state=convert.env_state_from_numpy(fields(js0), device="cpu"), noise=noise,
         record=True,
     )
     for t, (actions, rewards, info, state) in enumerate(out.trace):

@@ -58,7 +58,7 @@ def test_step_matches_jax(case):
         js = js.replace(agent_break=jnp.asarray(brk, jnp.int32))
     jh = jax_heuristic_init(jp, B)
     policy, jstep = jax_policy_fn(jp, jl), jax_step_fn(jp)
-    ps = convert.env_state_from_numpy(fields(js))
+    ps = convert.env_state_from_numpy(fields(js), device="cpu")
     events = dict(deliveries=0, clashes=0, replans=0, escapes=0)
     for t in range(T):
         actions, jh = policy(js, jh)

@@ -40,7 +40,7 @@ def test_push_frame_matches_jax():
     B = 3
     rng = np.random.RandomState(0)
     jw = jax.vmap(lambda _: jt.init_window(W, N, D))(jnp.arange(B))
-    pw = pt.init_window(B, W, N, D)
+    pw = pt.init_window(B, W, N, D, device="cpu")
     push = jax.jit(jax.vmap(jt.push_frame))
     for k in range(W + 3):
         frame = rng.rand(B, N, D).astype(np.float32)
@@ -133,7 +133,7 @@ def test_sage_modules_match_jax():
     sd = convert.gde_params_from_numpy({
         "func": {"params": {"conv": {"DenseSAGEConv_0": jax.tree.map(np.asarray, p["params"])}}},
         "decoder": {"params": {"position_decoder": {"kernel": np.zeros((1, 2)), "bias": np.zeros(2)}}},
-    })
+    }, device="cpu")
     layer = {k.split("DenseSAGEConv_0.")[1]: v for k, v in sd.items() if "DenseSAGEConv_0" in k}
     temporal_mod, homo = sage.TemporalSAGE(D, 3), sage.HomoSAGE(D, 3)
     temporal_mod.load_state_dict(layer)

@@ -1,7 +1,7 @@
 """Shared helpers of the tests that hold swarm_ode_tpu_torch against the JAX
 package: JAX structs to numpy dicts, the JAX step's random draws,
-field-by-field comparison, and the flagship GDE's weights read out of its
-exported blob."""
+field-by-field comparison, the flagship GDE's weights read out of its
+exported blob, and medium windows of observations to serve."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,8 +21,11 @@ from swarm_ode_tpu.env.state import make_params as jmake_params
 from swarm_ode_tpu.policies import heuristic as jheur
 from swarm_ode_tpu_torch.config import EnvConfig as PEnvConfig
 from swarm_ode_tpu_torch.env.layout import build_layout as pbuild_layout
+from swarm_ode_tpu_torch.env.observations import observe
 from swarm_ode_tpu_torch.env.state import make_params as pmake_params
 from swarm_ode_tpu_torch.env.step import StepNoise
+from swarm_ode_tpu_torch.graphs import temporal as pt
+from swarm_ode_tpu_torch.policies.heuristic import heuristic_rollout
 
 TINY = "tarware-tiny-3agvs-2pickers-partialobs-v1"
 MEDIUM = "tarware-medium-19agvs-9pickers-partialobs-v1"
@@ -47,7 +50,7 @@ def both(env_id: str, **overrides):
     pcfg = PEnvConfig.from_env_id(env_id, **overrides)
     jlay = jbuild_layout(jcfg)
     play = pbuild_layout(pcfg)
-    return jmake_params(jcfg, jlay), jlay, pmake_params(pcfg, play), play
+    return jmake_params(jcfg, jlay), jlay, pmake_params(pcfg, play, "cpu"), play
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,3 +191,26 @@ def gde_params_from_stablehlo(path, hidden_dim: int = 64) -> dict:
     if k != len(names):
         raise ValueError(f"found {k} of the {len(names)} weight constants in {path}")
     return tree
+
+
+def served_windows():
+    """Three medium windows of the port's own observations (partial,
+    D = 435) from a seeded heuristic rollout, holding 5, 3 and 1 valid
+    frames; invalid frames are zero."""
+    _, _, pp, lay = both(MEDIUM)
+    B = 3
+    g = torch.Generator().manual_seed(17)
+    state = heuristic_rollout(pp, lay, B, 20, g).state
+    frames = []
+    for _ in range(5):
+        state = heuristic_rollout(pp, lay, B, 1, g, state=state).state
+        frames.append(observe(pp, state))
+    counts = torch.tensor([5, 3, 1], dtype=torch.int32)
+    w = pt.init_window(B, 5, pp.num_agents, frames[0].shape[-1], device="cpu")
+    for k, f in enumerate(frames):
+        # Window b takes the first counts[b] frames only.
+        keep = (k < counts)[:, None, None]
+        pushed = pt.push_frame(w, f)
+        w = pt.TemporalWindow(torch.where(keep[:, None], pushed.obs, w.obs),
+                              torch.where(k < counts, pushed.count, w.count))
+    return w
