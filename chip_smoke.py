@@ -9,12 +9,19 @@ Phases, one line of output each (any failure exits non-zero):
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel;
      timed);
   3. K1 and K2 against their plain PyTorch version on the card, on real
-     medium env rows and random grids: 0 mismatches required; kernel and
+     medium env rows, random grids and targets in the margin row below the
+     grid: 0 mismatches required; kernel and
      plain times at the main path's shape (12,672 rows);
   4. K3 (full-field BFS) against its plain version on all 57,344 rows of
-     real medium states and on random grids: 0 mismatches; its field read
-     at each own cell equals K1's (distance, next hop); times at 57,344
-     rows;
+     real medium states and on random grids: at walled widths of 32, 64 and
+     101 and a 150 x 150 grid, with 0, 1 and 200 sweeps, on impassable
+     targets and on every target of the out-of-range sweep at 9 x 8 and
+     medium: 0 mismatches; two launches bit-identical; its field read at
+     each own cell equals K1's (distance, next hop); times at 57,344 rows
+     (also at 200 sweeps, the early exit, and at 0 sweeps, its input and
+     output alone), against the bound and the time
+     before the redesign; ptxas's registers for its medium instantiation,
+     no spills;
   5. the card against the CPU: 50 steps of dispatcher + step at B = 64 with
      the same injected draws, every state field, reward and info identical;
   6. the main path: medium, B = 2048, reset + 200 steps, once in each
@@ -59,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +82,9 @@ SUM_RTOL = 32 * 2.0**-23
 # H100 SXM data sheet (700 W): device memory rate, float32 rate outside the
 # tensor cores.
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# K3 at 57,344 medium rows before its bit-packed redesign (one block per row,
+# the int32 field in shared memory), as PERF.md's kernel table records it.
+K3_PREVIOUS_MS = 1.2552
 # JAX package, 30 medium episodes (results_data/parity_rejoin_r4.json,
 # parity_at_chosen): deliveries, clashes, stucks per episode.
 JAX_PARITY = {"deliveries": 85.13, "clashes": 189.23, "stucks": 16.63}
@@ -132,16 +143,42 @@ def phase_card():
     return smi
 
 
+def ptxas_usage(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v report."""
+    usage, name, spills = {}, None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            usage[name] = (int(m.group(1)), *spills)
+    return usage
+
+
 def phase_build():
+    """Builds the kernels; returns K3's medium instantiation (the register
+    form for up to 32 words) as (registers, spill store, spill load bytes)."""
     from swarm_ode_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     path = _build.build()
     _build.library()
     dt = time.perf_counter() - t0
-    report = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
-              if "registers" in ln or "spill" in ln]
+    log = path.with_suffix(".log").read_text()
+    report = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     say("build", f"{path.name} in {dt:.1f} s; ptxas: " + " | ".join(report))
+    k3 = {k: v for k, v in ptxas_usage(log).items() if "bfs_dist_kernel" in k}
+    say("build", "K3 instantiations (registers, spill stores, spill loads): "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(k3.items())))
+    medium = [v for k, v in k3.items() if "bfs_dist_kernelILi1E" in k]
+    if len(medium) != 1 or medium[0][1] or medium[0][2]:
+        fail("build", f"K3's medium instantiation: {medium} (expected one, without spills)")
+    return medium[0]
 
 
 def real_rows(pp, state):
@@ -190,6 +227,17 @@ def random_rows(H, W, K, seed, device):
     return pas.to(device), tgt.to(device), pos.to(device)
 
 
+def margin_rows(H, W, K, seed, device):
+    """Random grids whose targets lie in the margin row below the grid,
+    [n, n + W+1): the JAX kernels seed it, and it reaches the grid's last
+    row."""
+    import torch
+
+    pas, _, pos = random_rows(H, W, K, seed, device)
+    tgt = (H * (W + 1) + torch.arange(K, device=device) % (W + 1)).int()
+    return pas, tgt, pos
+
+
 def phase_kernels(layout_cache):
     import torch
 
@@ -214,6 +262,7 @@ def phase_kernels(layout_cache):
     xH, xW = build_layout(xl).grid_size
     cases.append(("extralarge random (45 words)", xH, xW, 40, *random_rows(xH, xW, 4096, 4, "cuda")))
     cases.append(("80x30 random (79 words)", 80, 30, 64, *random_rows(80, 30, 1024, 5, "cuda")))
+    cases.append(("medium margin-row targets", H, W, iters, *margin_rows(H, W, 2048, 6, "cuda")))
 
     rows_checked = 0
     max_err = {"K1": 0, "K2": 0}
@@ -375,18 +424,31 @@ def phase_main_path(layout_cache):
     return by_setting
 
 
-def random_fields(H, W, K, seed, device):
+def random_fields(H, W, K, seed, device, impassable=False):
     """Random (K, H, W) grids with targets on every edge and corner, one
-    target on a blocked cell (it still starts at 0)."""
+    target on a blocked cell (it still starts at 0), or every target on one
+    when `impassable`."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     pas = torch.rand(K, H, W, generator=g) < 0.75
     ty, tx = torch.randint(0, H, (K,), generator=g), torch.randint(0, W, (K,), generator=g)
     ty[0::5], tx[1::5], ty[2::5], tx[3::5] = 0, 0, H - 1, W - 1
-    pas[torch.arange(K), ty, tx] = True
+    pas[torch.arange(K), ty, tx] = not impassable
     pas[4, ty[4], tx[4]] = False
     return pas.to(device), (ty * W + tx).int().to(device)
+
+
+def target_sweep(H, W, device):
+    """One random grid for every flat target in [-3W, 2HW + 5W) and the
+    int32 extremes: in the grid, below it, in its wall row, in the padding
+    that wraps to row 0, and far outside (ops/bfs_pallas.bfs_dist_plain)."""
+    import torch
+
+    ts = torch.cat([torch.arange(-3 * W, 2 * H * W + 5 * W),
+                    torch.tensor([-2**31, 2**31 - 1, 2**30, 2**31 - W])]).int()
+    pas = torch.rand(ts.shape[0], H, W, generator=torch.Generator().manual_seed(H * W)) < 0.8
+    return pas.to(device), ts.to(device)
 
 
 def phase_fields(layout_cache):
@@ -411,7 +473,21 @@ def phase_fields(layout_cache):
     cases = [("medium env rows", pas, tflat, iters),
              ("medium random", *random_fields(H, W, 8192, 12, "cuda"), iters),
              ("medium random, 8 sweeps", *random_fields(H, W, 4096, 13, "cuda"), 8),
-             ("80x30 random", *random_fields(80, 30, 1024, 14, "cuda"), 64)]
+             ("80x30 random", *random_fields(80, 30, 1024, 14, "cuda"), 64),
+             # Walled widths of 32 and more: the shared-memory form, +-Ws
+             # carries across whole words (Ws % 32 == 0: no shift by 32).
+             ("33x31 random (Ws = 32)", *random_fields(33, 31, 1024, 15, "cuda"), 80),
+             ("12x63 random (Ws = 64)", *random_fields(12, 63, 1024, 16, "cuda"), 60),
+             ("7x100 random (Ws = 101)", *random_fields(7, 100, 1024, 17, "cuda"), 120),
+             ("150x150 random (708 words)", *random_fields(150, 150, 128, 18, "cuda"), 600),
+             ("medium random, 0 sweeps", *random_fields(H, W, 2048, 19, "cuda"), 0),
+             ("medium random, 1 sweep", *random_fields(H, W, 2048, 20, "cuda"), 1),
+             # More sweeps than any distance needs: the early exit.
+             ("medium random, 200 sweeps", *random_fields(H, W, 4096, 21, "cuda"), 200),
+             ("medium random, impassable targets",
+              *random_fields(H, W, 4096, 22, "cuda", impassable=True), iters)]
+    cases += [(f"{h}x{w} target sweep, iters {it}", *target_sweep(h, w, "cuda"), it)
+              for h, w in ((9, 8), (H, W)) for it in (1, iters)]
     max_err = 0
     for name, p, t, it in cases:
         ref = bfs_pallas.bfs_dist_plain(p, t, it)
@@ -419,10 +495,16 @@ def phase_fields(layout_cache):
         torch.cuda.synchronize()
         mism = int((got != ref).sum())
         max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
+        reached = ref < bfs_pallas.INF
         say("fields", f"K3 {name}: {p.shape[0]} rows of {p.shape[1]}x{p.shape[2]}, "
-            f"reached {float((ref < bfs_pallas.INF).float().mean()):.3f}, mismatches {mism}")
+            f"reached {float(reached.float().mean()):.3f}, max distance "
+            f"{int(ref[reached].max()) if bool(reached.any()) else None}, mismatches {mism}")
         if mism:
             fail("fields", f"K3 {name}: {mism} mismatches")
+    again = bfs_pallas.bfs_dist_call(pas, tflat, iters)
+    if not torch.equal(again, bfs_pallas.bfs_dist_call(pas, tflat, iters)):
+        fail("fields", "K3: two launches on the same inputs differ")
+    say("fields", "K3: two launches on the medium env rows bit-identical")
 
     # The full field read at each own cell equals K1's own-cell query.
     dist = bfs_pallas.bfs_dist_call(pas, tflat, iters).view(B, A, H, W)
@@ -436,13 +518,17 @@ def phase_fields(layout_cache):
 
     times = {
         "K3": cuda_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, iters), 20),
+        "K3, 200 sweeps": cuda_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, 200), 20),
+        # No sweep: the mask in, the staging row and the field out alone.
+        "K3, 0 sweeps": cuda_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, 0), 20),
         "plain": cuda_time_ms(lambda: bfs_pallas.bfs_dist_plain(pas, tflat, iters), 5),
     }
     # In: the masks (one byte a cell) and the target; out: the int32 field.
     times["bound"] = bound(pas.numel() + 4 * B * A + 4 * pas.numel(), 5 * pas.numel())
     say("fields", f"times at {B * A} rows, {H}x{W}, {iters} sweeps: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items() if k != "bound")
-        + f"; bound {times['bound'][0]:.4f} ms ({times['bound'][1]})")
+        + f"; bound {times['bound'][0]:.4f} ms ({times['bound'][1]}), roofline share "
+        f"{times['bound'][0] / times['K3']:.3f}; {K3_PREVIOUS_MS} ms before the redesign (PERF.md, not this run)")
     return times, max_err
 
 
@@ -520,7 +606,7 @@ def check_k4(feats, src, dst, valid, S, smi):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        plan = sp.segment_plan(dst, valid, S, rows=src)
+        plan = sp.segment_plan(dst, valid, S, rows=src, num_rows=S)
         got = sp.segment_sum_planned(feats, *plan, mean=True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -554,7 +640,7 @@ def check_k4(feats, src, dst, valid, S, smi):
     t = {
         "ms": cuda_time_ms(lambda: sp.segment_sum_planned(feats, *plan, mean=True), 50),
         "plain_ms": cuda_time_ms(lambda: sp.segment_sum_planned_plain(feats, *plan, mean=True), 10),
-        "plan_ms": cuda_time_ms(lambda: sp.segment_plan(dst, valid, S, rows=src), 50),
+        "plan_ms": cuda_time_ms(lambda: sp.segment_plan(dst, valid, S, rows=src, num_rows=S), 50),
         "library_ms": cuda_time_ms(lambda: torch.sparse.mm(adj, feats), 50),
         "general_ms": cuda_time_ms(lambda: sp.segment_sum_call(msgs, dst, S, valid), 20),
         "general_plain_ms": cuda_time_ms(lambda: sp.segment_sum_plain(msgs, dst, S, valid), 10),
@@ -710,7 +796,7 @@ def main() -> None:
     # card to the CPU.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    k3_regs = phase_build()
     layouts = {}
     times, max_err = phase_kernels(layouts)
     k3_times, k3_err = phase_fields(layouts)
@@ -742,7 +828,9 @@ def main() -> None:
          "replaces": "swarm_ode_tpu/ops/bfs_pallas.py:69", "launches": k3_launches,
          "path": "full-field rollout, bfs_backend=xla", "max_abs_err": k3_err,
          "ms": k3_times["K3"], "plain_ms": k3_times["plain"], "bound_ms": k3_times["bound"][0],
-         "bound_by": k3_times["bound"][1], "library_ms": None},
+         "bound_by": k3_times["bound"][1], "library_ms": None,
+         "ms_200_sweeps": k3_times["K3, 200 sweeps"], "ms_0_sweeps": k3_times["K3, 0 sweeps"],
+         "registers": k3_regs[0]},
         # `launches`: the counted GDE serving run. Times of the served form
         # (planned, mean) at D = 435, the observation width; library_ms is
         # torch.sparse.mm of the CSR adjacency. D = 64 and the general form

@@ -189,7 +189,8 @@ def gde_stages(lay, pp, B, gen, reps=10):
         "observe_push_ms": synced_ms(lambda: temporal.push_frame(w, observe(pp, es)), reps),
         "graph_edges_ms": synced_ms(graph, reps),
         "plan_ms": synced_ms(lambda: segment_plan(edges[1], edges[2], g.x.shape[:3].numel(),
-                                                  rows=edges[0]), reps),
+                                                  rows=edges[0], num_rows=g.x.shape[:3].numel()),
+                             reps),
         "solve_decode_ms": synced_ms(solve, reps),
         "server_ms": synced_ms(lambda: predict(w.obs, w.count), reps),
         "valid_edges": int(edges[2].sum()),

@@ -1,24 +1,51 @@
-// K3: int32 min-plus BFS that writes the whole distance field.
+// K3: full-field BFS as a bit-packed wavefront, one warp per row, each cell's
+// distance written once.
 //
 // Replaces the Pallas kernel swarm_ode_tpu/ops/bfs_pallas.py::_bfs_kernel
 // (launched by bfs_dist_pallas), the field behind
 // env/pathfinding.dynamic_fields.
 //
-// One block runs one row (one agent's replan): it reads the row's (H, W)
-// passable mask, lays it out in shared memory with a wall column appended to
-// every grid row (stride Ws = W+1, as K2 does), and keeps the int32 distances
-// there twice, so each of the `iters` Jacobi sweeps
-//     d'[i] = passable[i] ? min(d[i], 1 + min(d[i-1], d[i+1], d[i-Ws], d[i+Ws])) : d[i]
-// reads one buffer and writes the other with a single __syncthreads between
-// sweeps. The wall column is never passable, so row ends need no masks, and
-// cells outside [0, n) read as unreached. The target starts at 0 whether or
-// not it is passable (env/pathfinding.passable_grid frees it anyway). At the
-// end the walled row is written back unwalled as (H, W) int32, neighbouring
-// threads on neighbouring addresses.
+// What it computes. A row is one agent's (H, W) passable mask and flat target
+// t. In the walled layout (a wall column appended to every grid row, stride
+// Ws = W+1, n = H*Ws cells) the target sits at t_w = (t // W)*Ws + t % W
+// (floor division, int32 arithmetic that wraps, as the JAX package computes
+// it). The Pallas kernel pads the row to HWp = round_up(n + Ws, 128) cells,
+// starts t_w at 0 when 0 <= t_w < HWp, passable or not, and runs `iters`
+// min-plus sweeps whose neighbours +-1 and +-Ws wrap modulo HWp. Nothing
+// outside the grid is passable, so only its first sweep can cross the wrap
+// or the padding: it reaches the passable grid cells among t_w and its four
+// neighbours (modulo HWp). From there on the wavefront stays in the grid,
+// where no shift needs to wrap. This kernel seeds that first frontier
+// directly, then grows it.
 //
-// What bounds it on the card: per sweep, 5 shared loads and 1 store per cell
-// and one barrier; device memory sees one read of the mask (H*W bytes) and one
-// write of the field (4*H*W bytes) per row, 126 MB for 57,344 medium rows.
+// The wavefront in bits. A warp owns a row. The walled grid packs one bit a
+// cell into words = ceil(n / 32) uint32 words. A sweep is
+//     new = ((r | r<<1 | r>>1 | r<<Ws | r>>Ws) & passable) & ~r;  r |= new
+// with the carries between words. A cell first reached at sweep s has
+// distance s: the bits of `new` are written into a per-warp int32 staging
+// row in shared memory, INF elsewhere, so each distance is written once and
+// no int32 field is rewritten per sweep. A sweep that reaches no new cell
+// (a warp vote) ends the row early: later sweeps would change nothing. The
+// staging row then goes out unwalled in coalesced stores.
+//
+// Two forms of the sweep, one per template instantiation:
+// - registers (Ws < 32 and words <= 64, every layout the env ships): lane l
+//   holds words l, l+32, ... (SLOTS of them) with their passable masks, and
+//   the carries come from the neighbouring words over __shfl_*_sync, as in
+//   K1 (csrc/bfs_bitpack.cu). A +-Ws shift then crosses at most one word.
+// - shared memory (wider rows, or more than 64 words): the words live in
+//   two per-warp buffers in shared memory; a +-Ws shift reads words w -+ q
+//   and w -+ (q+1), q = Ws / 32, and shifts by Ws % 32 bits (no shift at
+//   all when that is 0: a shift by 32 is undefined).
+//
+// The mask comes in as one coalesced pass over the row's H*W bytes into the
+// staging row (walled), then one __ballot_sync per word packs it.
+//
+// What bounds it on the card: device memory. Per row it reads H*W mask bytes
+// and writes 4*H*W bytes of field, each once (126 MB out for 57,344 medium
+// rows); shared memory sees about three accesses per cell in all (mask byte,
+// INF, read-out) plus one per reached cell, and a sweep is ~20 integer and
+// shuffle instructions per word.
 
 #include <cuda_runtime.h>
 
@@ -30,78 +57,257 @@ namespace {
 
 using swarm_bfs::kInf;
 
-constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxWarpsPerBlock = 4;
+constexpr size_t kMaxSmem = 227 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
-    bfs_dist_kernel(const uint8_t* __restrict__ pas, const int* __restrict__ tgt,
-                    int* __restrict__ out, int H, int W, int iters) {
-  extern __shared__ int smem[];
-  const int Ws = W + 1;
-  const int n = H * Ws;
-  const int hw = H * W;
-  int* cur = smem;
-  int* nxt = smem + n;
-  uint8_t* ps = reinterpret_cast<uint8_t*>(smem + 2 * n);
+struct Grid {
+  int H, W, Ws, n, hw, words, HWp, iters;
+};
 
-  const int row = blockIdx.x;
-  const uint8_t* prow = pas + static_cast<size_t>(row) * hw;
-  const int t = tgt[row];
-  // A target outside the grid matches no cell: the field stays unreached.
-  const int t_w = (t >= 0 && t < hw) ? (t / W) * Ws + t % W : -1;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int y = i / Ws;
-    const int x = i - y * Ws;
-    cur[i] = i == t_w ? 0 : kInf;
-    ps[i] = x < W ? (prow[y * W + x] != 0) : 0;
-  }
-  __syncthreads();
+// Per-warp shared memory: the int32 staging row (n cells), the passable
+// words, and two word buffers for the shared-memory form.
+size_t warp_smem_bytes(int H, int W) {
+  const size_t n = static_cast<size_t>(H) * (W + 1);
+  return 4 * (n + 3 * ((n + 31) / 32));
+}
 
-  for (int it = 0; it < iters; ++it) {
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      int v = cur[i];
-      if (ps[i]) {
-        const int left = i >= 1 ? cur[i - 1] : kInf;
-        const int right = i + 1 < n ? cur[i + 1] : kInf;
-        const int up = i >= Ws ? cur[i - Ws] : kInf;
-        const int down = i + Ws < n ? cur[i + Ws] : kInf;
-        v = min(v, min(min(right, left), min(down, up)) + 1);
-      }
-      nxt[i] = v;
+// Lane l's first unwalled cell j = l and its grid row; stepping j by 32 moves
+// the row by dq and the column by dr (with one carry).
+struct RowWalk {
+  int y, x, dq, dr;
+  __device__ RowWalk(int lane, int W) : y(lane / W), x(lane % W), dq(32 / W), dr(32 % W) {}
+  __device__ void step(int W) {
+    y += dq;
+    x += dr;
+    if (x >= W) {
+      x -= W;
+      ++y;
     }
-    __syncthreads();
-    int* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
   }
+};
 
-  int* orow = out + static_cast<size_t>(row) * hw;
-  for (int j = threadIdx.x; j < hw; j += kThreads) {
-    const int y = j / W;
-    orow[j] = cur[j + y];  // walled index y*Ws + x = j + y
+// Reads the row's mask into the staging row (one byte a walled cell) and
+// packs it into pw[words]. Leaves stage filled with kInf.
+__device__ void load_mask(const uint8_t* __restrict__ prow, int* stage, uint32_t* pw,
+                          const Grid& g, int lane) {
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(stage);
+  for (int i = lane; i < (g.n + 3) / 4; i += 32) stage[i] = 0;
+  __syncwarp();
+  RowWalk rw(lane, g.W);
+#pragma unroll 4
+  for (int j = lane; j < g.hw; j += 32) {
+    bytes[j + rw.y] = prow[j] != 0;  // walled index y*Ws + x = j + y
+    rw.step(g.W);
   }
+  __syncwarp();
+  for (int c = 0; c < g.words; ++c) {
+    const int i = c * 32 + lane;
+    const uint32_t b = __ballot_sync(kFull, i < g.n && bytes[i] != 0);
+    if (lane == 0) pw[c] = b;
+  }
+  __syncwarp();
+  for (int i = lane; i < g.n; i += 32) stage[i] = kInf;
+  __syncwarp();
+}
+
+// Writes distance s into the staging row for every bit of `fresh` (word w).
+__device__ __forceinline__ void record(int* stage, uint32_t fresh, int w, int s) {
+  while (fresh) {
+    stage[w * 32 + __ffs(fresh) - 1] = s;
+    fresh &= fresh - 1;
+  }
+}
+
+// The walled target (int32, wrapping) and the cells of the first frontier:
+// c[0] the target, c[1..4] its neighbours modulo HWp; -1 where a cell is
+// outside the grid or there is no seed.
+struct Seed {
+  int c[5];
+  __device__ Seed(int t, const Grid& g) {
+    int qd = t / g.W, rd = t % g.W;
+    if (rd < 0) {
+      rd += g.W;
+      --qd;
+    }
+    const int s = static_cast<int>(static_cast<unsigned>(qd) * static_cast<unsigned>(g.Ws) +
+                                   static_cast<unsigned>(rd));
+    const bool seeded = s >= 0 && s < g.HWp;
+    const int nb[5] = {s, s + 1 == g.HWp ? 0 : s + 1, s == 0 ? g.HWp - 1 : s - 1,
+                       s + g.Ws >= g.HWp ? s + g.Ws - g.HWp : s + g.Ws,
+                       s - g.Ws < 0 ? s - g.Ws + g.HWp : s - g.Ws};
+#pragma unroll
+    for (int k = 0; k < 5; ++k) c[k] = seeded && nb[k] < g.n ? nb[k] : -1;
+  }
+  // Bits of word w among the first frontier (k >= 1) and the target (k = 0).
+  __device__ uint32_t bits(int w, bool target) const {
+    uint32_t b = 0u;
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      if ((k == 0) == target && c[k] >= 0 && (c[k] >> 5) == w) b |= 1u << (c[k] & 31);
+    return b;
+  }
+};
+
+// Out: the staging row written unwalled, neighbouring lanes on neighbouring
+// addresses.
+__device__ void store_row(const int* stage, int* __restrict__ orow, const Grid& g, int lane) {
+  __syncwarp();
+  RowWalk rw(lane, g.W);
+#pragma unroll 4
+  for (int j = lane; j < g.hw; j += 32) {
+    orow[j] = stage[j + rw.y];
+    rw.step(g.W);
+  }
+}
+
+// SLOTS > 0: words in registers (Ws < 32, words <= 32*SLOTS). SLOTS == 0:
+// words in shared memory (any width).
+template <int SLOTS>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
+    bfs_dist_kernel(const uint8_t* __restrict__ pas, const int* __restrict__ tgt,
+                    int* __restrict__ out, int K, Grid g) {
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= K) return;  // uniform across the warp
+  int* stage = smem + static_cast<size_t>(warp) * (g.n + 3 * g.words);
+  uint32_t* pw = reinterpret_cast<uint32_t*>(stage + g.n);
+
+  load_mask(pas + static_cast<size_t>(row) * g.hw, stage, pw, g, lane);
+  const Seed seed(tgt[row], g);
+  if (lane == 0 && seed.c[0] >= 0) stage[seed.c[0]] = 0;  // even when impassable
+
+  if (g.iters > 0) {
+    if constexpr (SLOTS > 0) {
+      const int Ws = g.Ws;
+      uint32_t p[SLOTS], r[SLOTS];
+      bool any = false;
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        const int w = lane + 32 * s;
+        p[s] = w < g.words ? pw[w] : 0u;
+        r[s] = (seed.bits(w, false) | seed.bits(w, true)) & p[s];
+        const uint32_t fresh = r[s] & ~seed.bits(w, true);
+        record(stage, fresh, w, 1);
+        any |= fresh != 0u;
+      }
+      for (int it = 2; it <= g.iters && __any_sync(kFull, any); ++it) {
+        uint32_t prev[SLOTS], next[SLOTS];
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          const uint32_t up = __shfl_up_sync(kFull, r[s], 1);    // word - 1
+          const uint32_t dn = __shfl_down_sync(kFull, r[s], 1);  // word + 1
+          const uint32_t wrap_prev = s > 0 ? __shfl_sync(kFull, r[s > 0 ? s - 1 : 0], 31) : 0u;
+          const uint32_t wrap_next =
+              s + 1 < SLOTS ? __shfl_sync(kFull, r[s + 1 < SLOTS ? s + 1 : s], 0) : 0u;
+          prev[s] = lane == 0 ? wrap_prev : up;
+          next[s] = lane == 31 ? wrap_next : dn;
+        }
+        any = false;
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          const uint32_t x = r[s];
+          const uint32_t grown = (x << 1) | (prev[s] >> 31) | (x >> 1) | (next[s] << 31) |
+                                 (x << Ws) | (prev[s] >> (32 - Ws)) | (x >> Ws) |
+                                 (next[s] << (32 - Ws));
+          const uint32_t fresh = grown & p[s] & ~x;
+          record(stage, fresh, lane + 32 * s, it);
+          any |= fresh != 0u;
+          r[s] = x | fresh;
+        }
+      }
+    } else {
+      const int q = g.Ws >> 5, rr = g.Ws & 31;
+      uint32_t* cur = pw + g.words;
+      uint32_t* nxt = cur + g.words;
+      bool any = false;
+      for (int w = lane; w < g.words; w += 32) {
+        const uint32_t r = (seed.bits(w, false) | seed.bits(w, true)) & pw[w];
+        cur[w] = r;
+        const uint32_t fresh = r & ~seed.bits(w, true);
+        record(stage, fresh, w, 1);
+        any |= fresh != 0u;
+      }
+      __syncwarp();
+      for (int it = 2; it <= g.iters && __any_sync(kFull, any); ++it) {
+        any = false;
+        for (int w = lane; w < g.words; w += 32) {
+          const uint32_t x = cur[w];
+          const uint32_t a = w > 0 ? cur[w - 1] : 0u;
+          const uint32_t b = w + 1 < g.words ? cur[w + 1] : 0u;
+          const uint32_t c0 = w - q >= 0 ? cur[w - q] : 0u;
+          const uint32_t c1 = w - q - 1 >= 0 ? cur[w - q - 1] : 0u;
+          const uint32_t d0 = w + q < g.words ? cur[w + q] : 0u;
+          const uint32_t d1 = w + q + 1 < g.words ? cur[w + q + 1] : 0u;
+          const uint32_t from_up = rr ? (c0 << rr) | (c1 >> (32 - rr)) : c0;      // cell - Ws
+          const uint32_t from_down = rr ? (d0 >> rr) | (d1 << (32 - rr)) : d0;    // cell + Ws
+          const uint32_t grown = (x << 1) | (a >> 31) | (x >> 1) | (b << 31) | from_up | from_down;
+          const uint32_t fresh = grown & pw[w] & ~x;
+          nxt[w] = x | fresh;
+          record(stage, fresh, w, it);
+          any |= fresh != 0u;
+        }
+        __syncwarp();
+        uint32_t* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+      }
+    }
+  }
+  store_row(stage, out + static_cast<size_t>(row) * g.hw, g, lane);
+}
+
+template <int SLOTS>
+int launch(const uint8_t* pas, const int* tgt, int* out, int K, const Grid& g,
+           cudaStream_t stream) {
+  const size_t per_warp = warp_smem_bytes(g.H, g.W);
+  const int warps = static_cast<int>(
+      per_warp * kMaxWarpsPerBlock <= kMaxSmem ? kMaxWarpsPerBlock : kMaxSmem / per_warp);
+  const size_t smem = per_warp * warps;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bfs_dist_kernel<SLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (K + warps - 1) / warps;
+  bfs_dist_kernel<SLOTS><<<blocks, warps * 32, smem, stream>>>(pas, tgt, out, K, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory a block needs for an (H, W) grid.
+// Shared memory one warp (one row) needs for an (H, W) grid; a block needs at
+// least one warp's. Saturates at INT32_MAX.
 extern "C" int swarm_bfs_dist_smem_bytes(int H, int W) {
-  const size_t n = static_cast<size_t>(H) * (W + 1);
-  return static_cast<int>((2 * n * sizeof(int) + n + 3) & ~size_t{3});
+  if (H <= 0 || W <= 0) return 0;
+  const size_t bytes = warp_smem_bytes(H, W);
+  return bytes > 0x7fffffff ? 0x7fffffff : static_cast<int>(bytes);
 }
 
-// pas: (K, H, W) bytes in {0, 1}; tgt: (K,) flat targets y*W+x; out: (K, H, W)
-// int32. Returns cudaGetLastError() after the launch.
+// pas: (K, H, W) bytes, nonzero = passable; tgt: (K,) int32 flat targets
+// y*W+x; out: (K, H, W) int32. iters <= 0 runs no sweep. Returns
+// cudaGetLastError() after the launch.
 extern "C" int swarm_bfs_dist(const void* pas, const void* tgt, void* out, int K, int H,
                               int W, int iters, void* stream) {
-  if (K <= 0 || H <= 0 || W <= 0 || iters < 0) return cudaErrorInvalidValue;
-  const int smem = swarm_bfs_dist_smem_bytes(H, W);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bfs_dist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  bfs_dist_kernel<<<K, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pas), static_cast<const int*>(tgt), static_cast<int*>(out),
-      H, W, iters);
-  return static_cast<int>(cudaGetLastError());
+  if (K <= 0 || H <= 0 || W <= 0 || warp_smem_bytes(H, W) > kMaxSmem)
+    return cudaErrorInvalidValue;
+  Grid g;
+  g.H = H;
+  g.W = W;
+  g.Ws = W + 1;
+  g.n = H * g.Ws;
+  g.hw = H * W;
+  g.words = (g.n + 31) / 32;
+  g.HWp = (g.n + g.Ws + 127) / 128 * 128;
+  g.iters = iters;
+  auto P = static_cast<const uint8_t*>(pas);
+  auto T = static_cast<const int*>(tgt);
+  auto O = static_cast<int*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (g.Ws >= 32 || g.words > 64) return launch<0>(P, T, O, K, g, s);
+  if (g.words <= 32) return launch<1>(P, T, O, K, g, s);
+  return launch<2>(P, T, O, K, g, s);
 }

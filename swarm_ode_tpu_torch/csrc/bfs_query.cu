@@ -4,13 +4,16 @@
 // (launched by _pallas_query_call).
 //
 // One block runs one query: the row's int32 distances (n = H*Ws cells of the
-// walled grid, 2.3 KB on medium) live in shared memory, twice, so each of the
-// `iters` Jacobi sweeps
+// walled grid and the margin row below it, 2.4 KB on medium) live in shared
+// memory, twice, so each of the `iters` Jacobi sweeps
 //     d'[i] = passable[i] ? min(d[i], 1 + min(d[i-1], d[i+1], d[i-Ws], d[i+Ws])) : d[i]
 // reads one buffer and writes the other with a single __syncthreads between
 // sweeps. The wall column at stride Ws = W+1 is never passable, so row ends
-// need no masks; cells outside [0, n) read as unreached (the Pallas kernel's
-// rolls wrap into an impassable margin of at least Ws cells instead).
+// need no masks. The margin row [n, n + Ws) is never passable either: it
+// holds 0 where the target lies there (the Pallas kernel seeds it in its
+// padded row), INF elsewhere, so the last grid row reads its lower
+// neighbours without a bounds check. Cells above the grid read as unreached
+// (the Pallas kernel's rolls wrap into its impassable margin instead).
 // Thread 0 then reads the own cell and its 4 neighbours and picks the next
 // hop exactly as bfs_pallas.py:92-124 does.
 //
@@ -36,16 +39,20 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ pos, int* __restrict__ d_out,
                      int* __restrict__ nd_out, int n, int Ws, int iters) {
   extern __shared__ int smem[];
+  const int m = n + Ws;  // the grid and the margin row
   int* cur = smem;
-  int* nxt = smem + n;
-  uint8_t* ps = reinterpret_cast<uint8_t*>(smem + 2 * n);
+  int* nxt = smem + m;
+  uint8_t* ps = reinterpret_cast<uint8_t*>(smem + 2 * m);
 
   const int row = blockIdx.x;
   const uint8_t* prow = pas + static_cast<size_t>(row) * n;
   const int t = tgt[row];
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+  for (int i = threadIdx.x; i < m; i += kThreads) {
     cur[i] = i == t ? 0 : kInf;
-    ps[i] = prow[i];
+    if (i < n)
+      ps[i] = prow[i];
+    else
+      nxt[i] = cur[i];  // the margin row is never swept
   }
   __syncthreads();
 
@@ -54,9 +61,9 @@ __global__ void __launch_bounds__(kThreads)
       int v = cur[i];
       if (ps[i]) {
         const int left = i >= 1 ? cur[i - 1] : kInf;
-        const int right = i + 1 < n ? cur[i + 1] : kInf;
+        const int right = cur[i + 1];
         const int up = i >= Ws ? cur[i - Ws] : kInf;
-        const int down = i + Ws < n ? cur[i + Ws] : kInf;
+        const int down = cur[i + Ws];
         v = min(v, min(min(right, left), min(down, up)) + 1);
       }
       nxt[i] = v;
@@ -87,9 +94,10 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Dynamic shared memory a block needs for a row of n cells.
-extern "C" int swarm_bfs_query_smem_bytes(int n) {
-  return static_cast<int>((2 * static_cast<size_t>(n) * sizeof(int) + n + 3) & ~size_t{3});
+// Dynamic shared memory a block needs for a row of n cells, walled width Ws.
+extern "C" int swarm_bfs_query_smem_bytes(int n, int Ws) {
+  const size_t m = static_cast<size_t>(n) + Ws;
+  return static_cast<int>((2 * m * sizeof(int) + n + 3) & ~size_t{3});
 }
 
 // pas: (K, n) bytes in {0, 1}; tgt, pos: (K,) walled-flat cells; d, nd: (K,)
@@ -97,7 +105,7 @@ extern "C" int swarm_bfs_query_smem_bytes(int n) {
 extern "C" int swarm_bfs_query(const void* pas, const void* tgt, const void* pos, void* d,
                                void* nd, int K, int n, int Ws, int iters, void* stream) {
   if (K <= 0 || n <= 0 || Ws < 1) return cudaErrorInvalidValue;
-  const int smem = swarm_bfs_query_smem_bytes(n);
+  const int smem = swarm_bfs_query_smem_bytes(n, Ws);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         bfs_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -96,7 +96,7 @@ class GraphODE(nn.Module):
         else:
             B, W, N, _ = graph.x.shape
             src, dst, valid = edges
-            plan = segment_plan(dst, valid, B * W * N, rows=src)
+            plan = segment_plan(dst, valid, B * W * N, rows=src, num_rows=B * W * N)
 
             def aggregate(h):
                 return edge_mean_aggregate(h, edges, plan)

@@ -13,9 +13,10 @@ offsets -1, +1, -Ws, +Ws need no edge masks.
   (`ops/bfs_bitpack.bitpack_query_call`): the two kernels compute the same
   (distance, next hop) per row, which the JAX package pins bit for bit.
 - `bfs_dist_call` wraps K3, `csrc/bfs_dist.cu`, which replaces the Pallas
-  kernel `_bfs_kernel` (driven by `bfs_dist_pallas`): the same sweeps, the
-  whole (H, W) field out. `bfs_dist_plain` is its plain version; it shares
-  the sweep (`_sweep`) with `query_plain`.
+  kernel `_bfs_kernel` (driven by `bfs_dist_pallas`): the whole (H, W)
+  distance field out, from a bit-packed wavefront. `bfs_dist_plain` is its
+  plain version: `bfs_dist_pallas`'s sweeps over the same padded row, with
+  the same wrap, for any int32 target.
 - `bfs_query_occ_batched` compacts the rows the env step consumes across the
   whole batch, builds their passable masks, runs the query it is given (K1
   or K2, picked by `env/pathfinding.replan_query`) and scatters the
@@ -65,10 +66,13 @@ def _sweep(pas, tgt, H: int, W: int, iters: int):
     """`iters` int32 min-plus sweeps over each row's walled grid.
 
     pas: (K, n) bool or {0, 1} passable masks, n = H*(W+1); tgt: (K,)
-    walled-flat targets (a target outside [0, n) matches no cell). Returns
-    (d, ok): (K, n + 2*Ws) int32 distances and bool passability with one
-    row of unreached, impassable cells on either side of the grid, so the
-    grid proper is [:, Ws:Ws+n]."""
+    walled-flat targets. A target in [0, n + Ws) starts at 0: one in the
+    margin row below the grid ([n, n + Ws), impassable) gives distance 1 to
+    the cell above it, as the JAX kernels' padded layout does; any other
+    target matches no cell. Returns (d, ok): (K, n + 2*Ws) int32 distances
+    and bool passability with one row of impassable cells on either side of
+    the grid (the one below is the margin row), so the grid proper is
+    [:, Ws:Ws+n]."""
     K, n = pas.shape
     Ws = W + 1
     if n != H * Ws:
@@ -76,9 +80,9 @@ def _sweep(pas, tgt, H: int, W: int, iters: int):
     dev = pas.device
     ok = torch.zeros(K, n + 2 * Ws, dtype=torch.bool, device=dev)
     ok[:, Ws:Ws + n] = pas != 0
-    col = torch.arange(n, device=dev)
+    col = torch.arange(n + Ws, device=dev)
     d = torch.full((K, n + 2 * Ws), INF, dtype=torch.int32, device=dev)
-    d[:, Ws:Ws + n] = torch.where(col[None, :] == tgt[:, None].long(), 0, INF).to(torch.int32)
+    d[:, Ws:] = torch.where(col[None, :] == tgt[:, None].long(), 0, INF).to(torch.int32)
     inner = ok[:, Ws:Ws + n]
     for _ in range(iters):
         cur = d[:, Ws:Ws + n]
@@ -110,15 +114,36 @@ def query_plain(pas, tgt, pos, H: int, W: int, iters: int):
 
 def bfs_dist_plain(pas, tgt_flat, iters: int):
     """Plain PyTorch version of K3: (K, H, W) int32 BFS distances, INF where
-    unreached. pas: (K, H, W) bool or {0, 1}; tgt_flat: (K,) plain flat
-    targets y*W + x (one outside [0, H*W) leaves the row unreached)."""
+    unreached. pas: (K, H, W) bool or {0, 1}; tgt_flat: (K,) int32 plain
+    flat targets y*W + x.
+
+    It mirrors `bfs_dist_pallas` for every int32 target: the walled target
+    (t // W)*(W+1) + t % W (floor division, int32 arithmetic that wraps, as
+    JAX computes it) starts at 0 wherever it lies in the padded row of
+    HWp = round_up((H+1)*(W+1), 128) cells, passable or not, and a sweep
+    reads the neighbours +-1 and +-(W+1) modulo HWp. So a target in the
+    wall row below the grid, or in the last W+1 cells of the padding, gives
+    1 to the grid cells next to it (row H-1, or row 0 across the wrap); any
+    other target outside the grid reaches nothing."""
     K, H, W = pas.shape
     Ws = W + 1
-    pas_w = torch.cat([pas != 0, torch.zeros(K, H, 1, dtype=torch.bool, device=pas.device)], 2)
-    t = tgt_flat.long()
-    tgt_w = torch.where((t >= 0) & (t < H * W), (t // W) * Ws + t % W, -1)
-    d, _ = _sweep(pas_w.reshape(K, H * Ws), tgt_w, H, W, iters)
-    return d[:, Ws:Ws + H * Ws].reshape(K, H, Ws)[:, :, :W].contiguous()
+    n = H * Ws
+    HWp = _round_up(n + Ws, 128)
+    dev = pas.device
+    ok = torch.zeros(K, HWp, dtype=torch.bool, device=dev)
+    ok[:, :n] = torch.cat([pas != 0, torch.zeros(K, H, 1, dtype=torch.bool, device=dev)],
+                          2).reshape(K, n)
+    t = tgt_flat.to(torch.int32)
+    tgt_w = torch.div(t, W, rounding_mode="floor") * Ws + torch.remainder(t, W)
+    col = torch.arange(HWp, dtype=torch.int32, device=dev)
+    d = torch.where(col[None, :] == tgt_w[:, None], 0, INF).to(torch.int32)
+    for _ in range(iters):
+        best = torch.minimum(
+            torch.minimum(d.roll(-1, 1), d.roll(1, 1)),
+            torch.minimum(d.roll(-Ws, 1), d.roll(Ws, 1)),
+        )
+        d = torch.where(ok, torch.minimum(d, best + 1), d)
+    return d[:, :n].reshape(K, H, Ws)[:, :, :W].contiguous()
 
 
 def check_query_args(pas, tgt, pos, H: int, W: int) -> tuple[int, int]:
@@ -154,7 +179,7 @@ def query_call(pas, tgt, pos, H: int, W: int, iters: int):
     if K == 0:
         return d, nd
     lib = _build.library()
-    if lib.swarm_bfs_query_smem_bytes(n) > 227 * 1024:
+    if lib.swarm_bfs_query_smem_bytes(n, W + 1) > 227 * 1024:
         raise ValueError(f"a row of {n} cells does not fit one block's shared memory")
     with torch.cuda.device(pas.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -168,12 +193,14 @@ def query_call(pas, tgt, pos, H: int, W: int, iters: int):
 
 
 def bfs_dist_call(pas, tgt_flat, iters: int):
-    """K3: the full-field min-plus BFS (`csrc/bfs_dist.cu`) for CUDA tensors,
-    `bfs_dist_plain` for CPU tensors. Counterpart of `bfs_dist_pallas`.
+    """K3: the full-field BFS (`csrc/bfs_dist.cu`, a bit-packed wavefront)
+    for CUDA tensors, `bfs_dist_plain` for CPU tensors. Counterpart of
+    `bfs_dist_pallas`, with its answer for every int32 target.
 
     pas: (K, H, W) bool or uint8 passable masks (targets and own cells
     already freed); tgt_flat: (K,) int32 flat targets y*W + x. Returns
-    (K, H, W) int32 distances, INF where unreached."""
+    (K, H, W) int32 distances, INF where unreached. Raises ValueError for a
+    grid whose row does not fit one block's shared memory."""
     global DIST_LAUNCHES
     if pas.device.type == "cpu":
         return bfs_dist_plain(pas, tgt_flat, iters)
@@ -192,7 +219,7 @@ def bfs_dist_call(pas, tgt_flat, iters: int):
     if not (pas.is_contiguous() and tgt_flat.is_contiguous()):
         raise ValueError("kernel inputs must be contiguous")
     out = torch.empty(K, H, W, dtype=torch.int32, device=pas.device)
-    if K == 0:
+    if K * H * W == 0:
         return out
     lib = _build.library()
     if lib.swarm_bfs_dist_smem_bytes(H, W) > 227 * 1024:

@@ -77,9 +77,11 @@ def segment_mean(data, segment_ids, num_segments: int, valid=None,
 def gather_scatter_mean(x_src, src, dst, valid, num_dst: int, plan=None) -> torch.Tensor:
     """Sparse equivalent of ops.sage.masked_mean_aggregate: source features
     (S, D) gathered along the edges and mean-scattered into `num_dst`
-    destinations, in one K4 launch. `plan` is `segment_plan(dst, valid,
-    num_dst, rows=src)`: a caller that averages over one edge list many
-    times builds it once and passes it in."""
+    destinations, in one K4 launch. Sources outside [0, S) are read as a
+    JAX gather reads them (S added once to a negative one, then clamped).
+    `plan` is `segment_plan(dst, valid, num_dst, rows=src, num_rows=S)`: a
+    caller that averages over one edge list many times builds it once and
+    passes it in."""
     if plan is None:
-        plan = segment_plan(dst, valid, num_dst, rows=src)
+        plan = segment_plan(dst, valid, num_dst, rows=src, num_rows=x_src.shape[0])
     return segment_sum_planned(x_src, *plan, mean=True)

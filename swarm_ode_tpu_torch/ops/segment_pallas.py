@@ -31,15 +31,21 @@ from swarm_ode_tpu_torch.ops import _build
 LAUNCHES = 0
 
 
-def segment_plan(ids, valid, num_segments: int, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def segment_plan(ids, valid, num_segments: int, rows=None,
+                 num_rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Destination order for K4, without a host synchronisation.
 
     ids: (E,) int bucket of each entry; valid: (E,) bool or None; rows:
-    (E,) int32 row of `data` each entry reads, or None for row k = entry k.
+    (E,) int row of `data` each entry reads, or None for row k = entry k;
+    num_rows: R, the rows `data` has, given with `rows` and only then.
+    The rows are brought into [0, R) as a JAX gather `x[rows]` does it:
+    R is added once to a negative row, then the row is clamped.
     Returns (row, offsets): row (E,) int32, the entries' rows sorted by
     bucket, stably; offsets (num_segments + 1,) int32, bucket d's range of
     `row`. Invalid and out-of-range entries lie at or beyond
     offsets[num_segments]."""
+    if (rows is None) != (num_rows is None):
+        raise ValueError("segment_plan takes rows and num_rows together")
     keep = (ids >= 0) & (ids < num_segments)
     if valid is not None:
         keep = keep & valid
@@ -47,7 +53,12 @@ def segment_plan(ids, valid, num_segments: int, rows=None) -> Tuple[torch.Tensor
     sorted_key, order = torch.sort(key, stable=True)
     bounds = torch.arange(num_segments + 1, dtype=torch.int32, device=ids.device)
     offsets = torch.searchsorted(sorted_key, bounds, out_int32=True)
-    row = order if rows is None else rows.index_select(0, order)
+    if rows is None:
+        return order.to(torch.int32), offsets
+    if num_rows < 1:
+        raise ValueError(f"num_rows must be at least 1, got {num_rows}")
+    # Clamped into [-R, R), a row r < 0 becomes r + R and the rest stay.
+    row = torch.remainder(rows.index_select(0, order).clamp(-num_rows, num_rows - 1), num_rows)
     return row.to(torch.int32), offsets
 
 

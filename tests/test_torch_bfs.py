@@ -91,6 +91,32 @@ def test_plain_query_matches_pallas_kernels_random(H, W, iters, density):
     assert len(set(nd.tolist())) >= 3
 
 
+@pytest.mark.parametrize("kernel", ["int32", "bitpack32"])
+@pytest.mark.parametrize("H,W", [(9, 8), (25, 22)])
+def test_margin_row_query_matches_jax(H, W, kernel):
+    """Walled targets in the margin row below the grid, [n, n + W+1),
+    which the JAX kernels seed and which reach the grid's last row. The
+    int32 kernel is pinned on the whole row. The bit-packed one wraps
+    modulo its 32*words bits, so it is pinned where the target's lower
+    neighbour (t + W+1) stays below that: past it the two JAX kernels
+    disagree with each other."""
+    Ws = W + 1
+    n = H * Ws
+    M = 32 * -(-(n + Ws) // 32)
+    pas, _, pos = _random_rows(H, W, 4 * Ws, seed=n)
+    tgt = (n + np.arange(4 * Ws) % Ws).astype(np.int32)
+    if kernel == "bitpack32":
+        keep = tgt + Ws < M
+        pas, tgt, pos = pas[keep], tgt[keep], pos[keep]
+    iters = 40
+    d, nd = _plain(pas, tgt, pos, H, W, iters)
+    ref = {"int32": _jax_int32_query, "bitpack32": _jax_bitpack_query}[kernel]
+    d_ref, nd_ref = ref(pas, tgt, pos, H, W, iters)
+    np.testing.assert_array_equal(d, d_ref)
+    np.testing.assert_array_equal(nd, nd_ref)
+    assert (d < bfs_pallas.INF).mean() > 0.5  # the margin seeds reach the grid
+
+
 @pytest.mark.parametrize("env_id", [TINY, MEDIUM])
 def test_plain_query_matches_pallas_kernels_env_masks(env_id):
     """Real passable masks: reset occupancy, random rack targets."""

@@ -82,6 +82,80 @@ def test_bfs_dist_matches_plain(cuda, H, W):
         assert torch.equal(got.cpu(), ref)
 
 
+def _random_fields(H, W, K, seed, impassable_targets=False):
+    """Random (K, H, W) grids, targets on every edge and corner; every
+    target impassable when asked (it still starts at 0)."""
+    g = torch.Generator().manual_seed(seed)
+    pas = torch.rand(K, H, W, generator=g) < 0.75
+    ty, tx = torch.randint(0, H, (K,), generator=g), torch.randint(0, W, (K,), generator=g)
+    ty[0::5], tx[1::5], ty[2::5], tx[3::5] = 0, 0, H - 1, W - 1
+    pas[torch.arange(K), ty, tx] = not impassable_targets
+    return pas, (ty * W + tx).int()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,iters", [
+    (33, 31, 80),  # Ws = 32: whole-word +-Ws carries, no shift by 32
+    (12, 63, 60),  # Ws = 64
+    (7, 100, 120),  # Ws = 101: two words and 5 bits
+    (150, 150, 600),  # 708 words: the rows live in shared memory
+    (25, 22, 0), (25, 22, 1), (25, 22, 200),  # no sweep, one, past the diameter
+])
+def test_bfs_dist_widths_and_sweeps(cuda, H, W, iters):
+    """K3 vs its plain version, bit for bit, at walled widths of 32 and more,
+    on a grid whose row is longer than a warp's registers hold, and with 0,
+    1 and more sweeps than any distance needs (the early exit)."""
+    pas, tgt = (t.to(cuda) for t in _random_fields(H, W, 64 if H * W > 10000 else 256,
+                                                   seed=H + W + iters))
+    ref = bfs_pallas.bfs_dist_plain(pas, tgt, iters)  # on the card: 600 sweeps of 150x150
+    got = bfs_pallas.bfs_dist_call(pas, tgt, iters)
+    assert torch.equal(got, ref)
+    if iters >= 200:
+        assert (ref > 32).any()  # the field is reached beyond K1's sweep budget
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [0, 1, 40])
+def test_bfs_dist_impassable_and_out_of_range_targets(cuda, iters):
+    """Targets on impassable cells (0 there, 1 at their passable
+    neighbours), and the sweep of out-of-range targets: below the grid, in
+    the wall row, in the padding that wraps to row 0, and the int32
+    extremes."""
+    for H, W in ((9, 8), (25, 22)):
+        pas, tgt = _random_fields(H, W, 256, seed=iters, impassable_targets=True)
+        ref = bfs_pallas.bfs_dist_plain(pas, tgt, iters)
+        assert (ref.view(256, -1).gather(1, tgt.long()[:, None]) == 0).all()
+        assert torch.equal(bfs_pallas.bfs_dist_call(pas.to(cuda), tgt.to(cuda), iters).cpu(), ref)
+        ts = torch.cat([torch.arange(-3 * W, 2 * H * W + 5 * W, dtype=torch.int32),
+                        torch.tensor([-2**31, 2**31 - 1, 2**30], dtype=torch.int32)])
+        pas = torch.rand(ts.shape[0], H, W, generator=torch.Generator().manual_seed(H)) < 0.8
+        ref = bfs_pallas.bfs_dist_plain(pas, ts, iters)
+        assert torch.equal(bfs_pallas.bfs_dist_call(pas.to(cuda), ts.to(cuda), iters).cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_queries_on_margin_row_targets(cuda):
+    """K1 and K2 against the plain query for targets in the margin row below
+    the grid, which reach the grid's last row."""
+    H, W = 25, 22
+    Ws, n = W + 1, 25 * 23
+    pas, _, pos = _random_rows(H, W, 2 * Ws * 8, seed=11)
+    tgt = (n + torch.arange(pas.shape[0]) % Ws).int()
+    ref = bfs_pallas.query_plain(pas, tgt, pos, H, W, 40)
+    assert (ref[0] < bfs_pallas.INF).any()
+    gpu = tuple(t.to(cuda) for t in (pas, tgt, pos))
+    for call in (bfs_bitpack.bitpack_query_call, bfs_pallas.query_call):
+        d, nd = call(*gpu, H, W, 40)
+        assert torch.equal(d.cpu(), ref[0]) and torch.equal(nd.cpu(), ref[1])
+
+
+@pytest.mark.cuda
+def test_bfs_dist_rejects_a_grid_beyond_shared_memory(cuda):
+    pas = torch.ones(1, 400, 400, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        bfs_pallas.bfs_dist_call(pas, torch.zeros(1, dtype=torch.int32, device=cuda), 3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [1, 64, 435])
 def test_segment_sum_matches_plain(cuda, D):
@@ -131,13 +205,13 @@ def test_planned_segment_sum_matches_plain(cuda, D):
     src = torch.randint(0, R, (E,), generator=g).int()
     dst = torch.randint(-5, N + 5, (E,), generator=g).int()
     valid = torch.rand(E, generator=g) < 0.8
-    plan = segment_pallas.segment_plan(dst, valid, N, rows=src)
+    plan = segment_pallas.segment_plan(dst, valid, N, rows=src, num_rows=R)
     xg, dg, vg, sg = (t.to(cuda) for t in (x, dst, valid, src))
     torch.cuda.synchronize()
     before = segment_pallas.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
-        gplan = segment_pallas.segment_plan(dg, vg, N, rows=sg)
+        gplan = segment_pallas.segment_plan(dg, vg, N, rows=sg, num_rows=R)
         runs = [segment_pallas.segment_sum_planned(xg, *gplan, mean=mean)
                 for mean in (False, True, False, True)]
     finally:

@@ -97,6 +97,41 @@ def test_bfs_dist_plain_matches_pallas_interpret():
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("iters", [0, 1, 30])
+@pytest.mark.parametrize("H,W", [(9, 8), (25, 22)])
+def test_bfs_dist_plain_matches_pallas_on_every_target(H, W, iters):
+    """Every target in [-3W, 2HW + 5W) and the int32 extremes, one row each:
+    below the grid, in its wall row, in the padding whose neighbours wrap to
+    row 0, and far out (targets whose int32 walled index wraps). Bit for bit
+    with `bfs_dist_pallas`, at 0 sweeps (the target alone), 1 (the frontier
+    across the wrap) and 30."""
+    ts = np.concatenate([np.arange(-3 * W, 2 * H * W + 5 * W),
+                         [-2**31, 2**31 - 1, 2**30, 2**31 - W]]).astype(np.int32)
+    pas = np.random.RandomState(H).rand(ts.size, H, W) < 0.8
+    ref = np.asarray(bfs_dist_pallas(jnp.asarray(pas), jnp.asarray(ts), iters, interpret=True))
+    got = bfs_pallas.bfs_dist_plain(torch.from_numpy(pas), torch.from_numpy(ts), iters)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    reached = (ref < bfs_pallas.INF).reshape(ts.size, -1).any(1)
+    outside = (ts < 0) | (ts >= H * W)
+    # Some targets outside the grid reach it (after a sweep), most do not.
+    assert (reached[outside].any() == (iters > 0)) and not reached[outside].all()
+
+
+@pytest.mark.parametrize("H,W", [(6, 31), (5, 63), (4, 100)], ids=["Ws32", "Ws64", "Ws101"])
+def test_bfs_dist_plain_matches_pallas_at_wide_rows(H, W):
+    """Walled widths of 32, 64 and 101 cells; targets in the grid, some on
+    impassable cells."""
+    rng = np.random.RandomState(W)
+    K = 16
+    pas = rng.rand(K, H, W) < 0.75
+    tgt = rng.randint(0, H * W, K).astype(np.int32)
+    pas.reshape(K, -1)[np.arange(K), tgt] = np.arange(K) % 3 != 0
+    for iters in (2, 60):
+        ref = bfs_dist_pallas(jnp.asarray(pas), jnp.asarray(tgt), iters, interpret=True)
+        got = bfs_pallas.bfs_dist_plain(torch.from_numpy(pas), torch.from_numpy(tgt), iters)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
 def test_dynamic_fields_matches_pallas_interpret():
     """The medium env's own rows through K3's TPU form (interpret mode),
     as tests/test_pallas_kernels.py runs it at tiny size."""

@@ -127,7 +127,7 @@ def test_segment_plan_matches_numpy(masked, gather):
     ref_row, ref_off, keep, order = _plan_reference(ids, v, N, rows if gather else None)
     row, offsets = segment_pallas.segment_plan(
         torch.from_numpy(ids), None if v is None else torch.from_numpy(v), N,
-        torch.from_numpy(rows) if gather else None)
+        torch.from_numpy(rows) if gather else None, 50 if gather else None)
     assert row.dtype == offsets.dtype == torch.int32 and offsets.shape == (N + 1,)
     np.testing.assert_array_equal(offsets.numpy(), ref_off)
     np.testing.assert_array_equal(row.numpy(), ref_row)
@@ -149,7 +149,7 @@ def test_planned_plain_sum_equals_the_unplanned_one(mean):
     ref = (pseg.segment_mean(x[src.long()], i, N, v) if mean
            else segment_pallas.segment_sum_plain(x[src.long()], i, N, v))
     got = segment_pallas.segment_sum_planned(
-        x, *segment_pallas.segment_plan(i, v, N, rows=src), mean=mean)
+        x, *segment_pallas.segment_plan(i, v, N, rows=src, num_rows=40), mean=mean)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
@@ -161,13 +161,43 @@ def test_gather_scatter_mean_with_a_plan_matches_jax():
     adj = rng.rand(S, T) < 0.4
     x = rng.randn(S, D).astype(np.float32)
     src, dst, valid = pseg.adjacency_to_edges(torch.from_numpy(adj), 40)
-    plan = segment_pallas.segment_plan(dst, valid, T, rows=src)
+    plan = segment_pallas.segment_plan(dst, valid, T, rows=src, num_rows=S)
     got = pseg.gather_scatter_mean(torch.from_numpy(x), src, dst, valid, T, plan)
     jsrc, jdst, jvalid = jseg.adjacency_to_edges(jnp.asarray(adj), 40)
     ref = np.asarray(jseg.gather_scatter_mean(jnp.asarray(x), jsrc, jdst, jvalid, T))
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
     torch.testing.assert_close(
         got, pseg.gather_scatter_mean(torch.from_numpy(x), src, dst, valid, T), rtol=0, atol=0)
+
+
+def test_gather_scatter_mean_reads_out_of_range_sources_as_jax_does():
+    """JAX's `x_src[src]` adds S once to a negative source, then clamps into
+    [0, S): at S = 6, -1 -> 5, -3 -> 3, -7 -> 0, -20 -> 0, 6 -> 5, 9 -> 5.
+    The plan normalises its rows the same way, so the mean is bit for bit
+    JAX's, the int32 extremes included, and K4 never reads outside x."""
+    S, D, T = 6, 5, 4
+    rng = np.random.RandomState(9)
+    x = rng.randn(S, D).astype(np.float32)
+    src = np.concatenate([[-1, -3, -7, -20, 6, 9, 2**31 - 1, -2**31],
+                          rng.randint(-3 * S, 3 * S, 32)]).astype(np.int32)
+    dst = rng.randint(-2, T + 2, src.size).astype(np.int32)
+    valid = rng.rand(src.size) < 0.85
+    ref = np.asarray(jseg.gather_scatter_mean(*(jnp.asarray(a) for a in (x, src, dst, valid)), T))
+    t = [torch.from_numpy(a) for a in (x, src, dst, valid)]
+    np.testing.assert_array_equal(pseg.gather_scatter_mean(*t, T).numpy(), ref)
+    row, _ = segment_pallas.segment_plan(torch.from_numpy(np.arange(8, dtype=np.int32) % T), None,
+                                         T, rows=t[1][:8], num_rows=S)
+    np.testing.assert_array_equal(np.sort(row.numpy()), np.sort([5, 3, 0, 0, 5, 5, 5, 0]))
+
+
+def test_segment_plan_takes_rows_with_their_count():
+    ids = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="together"):
+        segment_pallas.segment_plan(ids, None, 2, rows=ids)
+    with pytest.raises(ValueError, match="together"):
+        segment_pallas.segment_plan(ids, None, 2, num_rows=4)
+    with pytest.raises(ValueError, match="at least 1"):
+        segment_pallas.segment_plan(ids, None, 2, rows=ids, num_rows=0)
 
 
 def test_served_predictions_through_the_plan(monkeypatch):
