@@ -7,11 +7,21 @@ Phases, one line of output each (any failure exits non-zero):
      for matrix products and cuDNN (the GDE compares the card with the CPU
      in full float32);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel;
-     timed);
-  3. K1 and K2 against their plain PyTorch version on the card, on real
-     medium env rows, random grids and targets in the margin row below the
-     grid: 0 mismatches required; kernel and
-     plain times at the main path's shape (12,672 rows);
+     timed); ptxas's registers and spills of each BFS kernel
+     instantiation, no spills in the medium forms;
+  3. K1 and K2 (one kernel, csrc/bfs_query.cu, building each row from its
+     env's occupancy) against their own plain versions (`_passable_rows`
+     then `bitpack_query_plain` or `query_plain`) on the card: on real
+     medium env rows; random medium rows at 0, 1, 8, 32 and 200 sweeps;
+     extralarge (44 words) and 80 x 30; targets and own cells on blocked
+     cells; for K2 also walled widths of 41, 64 and 151 (the shared-memory
+     form); every walled target in [-3(W+1), L + 3(W+1)) of each kernel's
+     padded row L and the int32 extremes: 0 mismatches. K1 against K2 on
+     real rows and on margin-row targets with t + W+1 < 32*words.
+     replan_query with host synchronisation forbidden. Times at the main
+     path's 12,672 rows at 32 and 200 sweeps, the plain versions and the
+     mask build the kernel replaces; the fused bound beside the earlier
+     (K, n) mask-row bound;
   4. K3 (full-field BFS) against its plain version on all 57,344 rows of
      real medium states and on random grids: at walled widths of 32, 64 and
      101 and a 150 x 150 grid, with 0, 1 and 200 sweeps, on impassable
@@ -27,8 +37,8 @@ Phases, one line of output each (any failure exits non-zero):
   6. the main path: medium, B = 2048, reset + 200 steps, once in each
      setting of bfs_kernel with the launch counts zeroed before and read
      after: the default (bitpack32) launches the bit-packed kernel once per
-     step, "int32" the int32 kernel, neither the other's, and nothing
-     overflows the compaction; batched_env_steps_per_sec (default setting,
+     step, "int32" the int32 kernel, neither the other's, `_passable_rows`
+     builds no (K, n) mask, and nothing overflows the compaction; batched_env_steps_per_sec (default setting,
      best of 3 after a warm-up); both settings give identical states from
      one start state and one set of draws;
   7. the full-field rollout: medium, B = 2048, 200 steps with
@@ -60,7 +70,16 @@ card could take for its work at this run's inputs: the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
 operations over 67 T/s (float32 outside the tensor cores; the BFS kernels'
 integer operations are counted at that rate too), the H100 SXM data sheet's
-rates at 700 W.
+rates at 700 W. A kernel's `ms` is the mean of CUDA events around
+launches queued behind a device sleep (`cuda_time_ms`, which fails if the
+device woke before the last launch was queued); its `trace_ms`, the mean
+of its own durations in torch.profiler traces (traced again until as many
+launches are held as were made), must lie within 20% of it.
+Plain versions, plans, library calls and the mask build are timed as
+kernels are (`device_ms`), or, where their calls cannot be queued behind
+the sleep (they synchronise or overflow the launch queue), as the device's
+busy time per call in a torch.profiler trace, one of two that hold the
+same, largest count of device events. No time may fall below its bound.
 """
 from __future__ import annotations
 
@@ -80,8 +99,20 @@ GDE_BATCH, GDE_STEPS, WINDOW, HORIZON, HIDDEN = 512, 50, 5, 4, 64
 # products sum in other orders than the plain versions.
 SUM_RTOL = 32 * 2.0**-23
 # H100 SXM data sheet (700 W): device memory rate, float32 rate outside the
-# tensor cores.
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# tensor cores; the SM clock's ceiling (1,980 MHz), which sizes the sleep
+# that timed launches queue behind.
+HBM_BYTES_PER_S, F32_OPS_PER_S, SM_CYCLES_PER_S = 3.35e12, 67e12, 1.98e9
+# A kernel's event-timed mean also holds the device's gap between back-to-
+# back launches, which its own duration in a profiler trace does not (under
+# a microsecond a launch on an H100): the two may differ by this share of the
+# trace mean. Time paced by the host instead (a kernel shorter than its
+# wrapper's Python reads as the wrapper's issue time) is far outside it.
+TRACE_RTOL = 0.2
+# A torch.profiler trace on an H100 may lose the records of some launches,
+# at the start or the end of its cycle, now and then all of them (0 of 50
+# K4 launches, 10 of 20 K3 launches lost); the same trace of another cycle
+# usually holds them all. `trace_ms` traces again, at most this many times.
+TRACE_TRIES = 8
 # K3 at 57,344 medium rows before its bit-packed redesign (one block per row,
 # the int32 field in shared memory), as PERF.md's kernel table records it.
 K3_PREVIOUS_MS = 1.2552
@@ -98,19 +129,132 @@ def fail(phase: str, msg: str) -> None:
     raise SystemExit(f"[{phase}] FAILED: {msg}")
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
+def _paced_ms(fn, reps: int):
+    """Mean device time of fn() over reps calls, after one warm-up, or None.
+    The calls queue up behind a device-side sleep sized from the host's time
+    to issue them, so a function shorter than its Python (K1 and K2 are) is
+    timed on the device, not at the host's issue rate. The mean stands only
+    if the start event was still pending when the last call was queued (the
+    device was still asleep); if not, the sleep is lengthened and the calls
+    timed again, and if that never holds (fn synchronises, or its launches
+    overflow the launch queue), the answer is None."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for pace in (2, 8, 32):
+        torch.cuda._sleep(int(min(pace * reps * issue_s, 1.0) * SM_CYCLES_PER_S))
+        start.record()
+        for _ in range(reps):
+            fn()
+        asleep = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if asleep:
+            return start.elapsed_time(end) / reps
+    return None
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """`_paced_ms` of a kernel wrapper (one launch a call); fails if the
+    device woke before the last launch was queued."""
+    ms = _paced_ms(fn, reps)
+    if ms is None:
+        fail("timing", f"the device woke before the last of {reps} launches was queued, even "
+             "behind a sleep of 32x their issue time")
+    return ms
+
+
+def device_ms(fn, reps: int, what: str) -> float:
+    """Device ms per call of a function of several launches (a plain
+    version, a plan, a library call): `_paced_ms` where it holds, else the
+    device's busy time per call in a trace (`trace_ms`)."""
+    ms = _paced_ms(fn, reps)
+    if ms is None:
+        ms = trace_ms(fn, reps)
+        say("timing", f"{what}: cannot be queued behind a sleep; device busy time from a "
+            f"trace: {ms:.4f} ms")
+    return ms
+
+
+def _traced(fn, reps: int):
+    """The device events (kernels, copies) that a torch.profiler trace of
+    reps calls of fn() records. A first cycle of reps calls is traced and
+    dropped: a trace loses launches at its start more often."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # The step's annotation on the device's timeline (ProfilerStep#n) spans
+    # the whole cycle and is no device work.
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def trace_ms(fn, reps: int, kernel=None) -> float:
+    """From torch.profiler traces of reps calls of fn(), after a warm-up.
+    With `kernel`: the mean duration of the launches whose name holds it
+    (one a call), the kernel's own time; a trace that lost launches adds
+    those it holds, and traces are taken until reps launches are held.
+    Without: the device's busy time per call (every kernel and copy of
+    fn(), without the gaps between them), from a trace holding the most
+    device events seen, once two traces agree on that count (a lossy trace
+    would read short). No host pacing reaches either. Fails after
+    TRACE_TRIES traces."""
+    import torch
+
+    fn()
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    us, seen = [], []
+    for attempt in range(1, TRACE_TRIES + 1):
+        dev = _traced(fn, reps)
+        if kernel is not None:
+            got = [e.time_range.elapsed_us() for e in dev if kernel in e.name]
+            us += got
+            if len(us) >= reps:
+                return sum(us) / 1e3 / len(us)
+            if attempt < TRACE_TRIES:
+                say("timing", f"a trace of {reps} calls held {len(got)} launches of {kernel}; "
+                    f"{len(us)} held in all, tracing again")
+        else:
+            seen.append((len(dev), sum(e.time_range.elapsed_us() for e in dev)))
+            most = max(n for n, _ in seen)
+            agree = [busy for n, busy in seen if n == most]
+            if most and len(agree) >= 2:
+                return agree[0] / 1e3 / reps
+    if kernel is not None:
+        fail("timing", f"{TRACE_TRIES} traces of {reps} calls held {len(us)} launches of {kernel}")
+    fail("timing", f"no two of {TRACE_TRIES} traces held the same, largest count of device "
+         f"events (events per trace: {[n for n, _ in seen]})")
+
+
+def at_least_bound(what: str, ms: float, bound_ms: float) -> None:
+    """A time below the least time the card could take for the work means
+    the timing missed some of it."""
+    if ms < bound_ms:
+        fail("timing", f"{what}: {ms:.4f} ms is below its bound {bound_ms:.4f} ms")
+
+
+def kernel_time_ms(fn, reps: int, kernel: str):
+    """(event mean, trace mean) in ms of a kernel wrapper fn(); fails if
+    they differ by more than TRACE_RTOL of the trace."""
+    ms, tr = cuda_time_ms(fn, reps), trace_ms(fn, reps, kernel)
+    if abs(ms - tr) > TRACE_RTOL * tr:
+        fail("timing", f"{kernel}: event mean {ms:.4f} ms and trace mean {tr:.4f} ms differ "
+             f"by more than {TRACE_RTOL:.0%} of the trace")
+    return ms, tr
 
 
 def bound(nbytes: float, ops: float):
@@ -161,8 +305,10 @@ def ptxas_usage(log: str) -> dict:
 
 
 def phase_build():
-    """Builds the kernels; returns K3's medium instantiation (the register
-    form for up to 32 words) as (registers, spill store, spill load bytes)."""
+    """Builds the kernels; returns {instantiation: (registers, spill store,
+    spill load bytes)} of K3 (`bfs_dist_kernel<S>`) and of the query kernel
+    of K1 and K2 (`bfs_query_kernel<S>`): S = 1 and 2 the register forms
+    (S = 1 at medium), S = 0 the shared-memory form."""
     from swarm_ode_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -172,79 +318,142 @@ def phase_build():
     log = path.with_suffix(".log").read_text()
     report = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     say("build", f"{path.name} in {dt:.1f} s; ptxas: " + " | ".join(report))
-    k3 = {k: v for k, v in ptxas_usage(log).items() if "bfs_dist_kernel" in k}
-    say("build", "K3 instantiations (registers, spill stores, spill loads): "
-        + ", ".join(f"{k}: {v}" for k, v in sorted(k3.items())))
-    medium = [v for k, v in k3.items() if "bfs_dist_kernelILi1E" in k]
-    if len(medium) != 1 or medium[0][1] or medium[0][2]:
-        fail("build", f"K3's medium instantiation: {medium} (expected one, without spills)")
-    return medium[0]
+    regs = {}
+    for mangled, use in ptxas_usage(log).items():
+        m = re.search(r"(bfs_dist_kernel|bfs_query_kernel)ILi(\d)E", mangled)
+        if m:
+            regs[f"{m.group(1)}<{m.group(2)}>"] = use
+    say("build", "BFS kernel instantiations (registers, spill stores, spill loads): "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(regs.items())))
+    for name in ("bfs_dist_kernel<1>", "bfs_query_kernel<1>"):
+        if name not in regs or regs[name][1] or regs[name][2]:
+            fail("build", f"{name} (the medium form): {regs.get(name)} (expected no spills)")
+    return regs
+
+
+def state_occupancy(pp, state):
+    """(B, H, W) bool: the cells agents stand on."""
+    import torch
+
+    B = state.agent_dir.shape[0]
+    H, W = pp.grid_h, pp.grid_w
+    xy = state.agent_xy
+    occ = torch.zeros(B, H * W, dtype=torch.bool, device=xy.device)
+    occ.scatter_(1, (xy[..., 1] * W + xy[..., 0]).long(), True)
+    return occ.view(B, H, W)
 
 
 def real_rows(pp, state):
-    """Every agent's replan query in `state` (all B*A rows, uncompacted)."""
+    """Every agent's replan query in `state` (all B*A rows, uncompacted), in
+    the kernels' occupancy form: (occ, env, cls, base, tgt, pos)."""
     import torch
 
-    from swarm_ode_tpu_torch.env.pathfinding import walled
     from swarm_ode_tpu_torch.env.state import agent_class
     from swarm_ode_tpu_torch.ops import bfs_pallas
 
     B, A = state.agent_dir.shape
-    H, W = pp.grid_h, pp.grid_w
-    Ws = W + 1
+    Ws = pp.grid_w + 1
     xy = state.agent_xy
-    occ = torch.zeros(B, H * W, dtype=torch.bool, device=xy.device)
-    occ.scatter_(1, (xy[..., 1] * W + xy[..., 0]).long(), True)
     tgt = pp.action_cells[(state.agent_target - 1).clamp(min=0).long()]
-    _, pas, tgtK, posK = bfs_pallas.compact_rows(
-        walled(occ.view(B, H, W)), tgt[..., 0] * Ws + tgt[..., 1],
-        xy[..., 1] * Ws + xy[..., 0], agent_class(pp),
-        torch.ones(B, A, dtype=torch.bool, device=xy.device), walled(pp.picker_passable),
-        H, W, row_frac=1.0, rows_per_block=128,
+    _, env, cls, tgtK, posK = bfs_pallas.compact_rows(
+        tgt[..., 0] * Ws + tgt[..., 1], xy[..., 1] * Ws + xy[..., 0], agent_class(pp),
+        torch.ones(B, A, dtype=torch.bool, device=xy.device), row_frac=1.0, rows_per_block=128,
     )
-    return pas, tgtK, posK
+    return bfs_pallas.walled_rows(state_occupancy(pp, state)), env, cls, pp.replan_base, tgtK, posK
 
 
-def random_rows(H, W, K, seed, device):
-    """Random grids (ties everywhere) with own cells on edges and corners."""
+def random_envs(H, W, B, K, seed, device, blocked=False):
+    """Occupancy-form query rows over B random envs (10% of cells occupied;
+    class 1 on a random highway of 85% of the cells), own cells on every
+    edge and corner. With `blocked`, every target and own cell lies on a
+    cell its row blocks (occupied, off the highway, or the wall column),
+    which the kernel must free."""
     import torch
+
+    from swarm_ode_tpu_torch.ops import bfs_pallas
 
     g = torch.Generator().manual_seed(seed)
     Ws = W + 1
-    n = H * Ws
-    grid = torch.rand(K, H, W, generator=g) < 0.75
-    pas = torch.cat([grid, torch.zeros(K, H, 1, dtype=torch.bool)], 2).reshape(K, n)
+    grid = torch.rand(B, H, W, generator=g) < 0.1
+    base = bfs_pallas.class_base_rows(torch.rand(H, W, generator=g) < 0.85)
+    env = torch.randint(0, B, (K,), generator=g)
+    cls = torch.randint(0, 2, (K,), generator=g)
     ty, tx = torch.randint(0, H, (K,), generator=g), torch.randint(0, W, (K,), generator=g)
     py, px = torch.randint(0, H, (K,), generator=g), torch.randint(0, W, (K,), generator=g)
-    py[0::4] = 0
-    px[1::4] = 0
-    py[2::4] = H - 1
-    px[3::4] = W - 1
-    tgt = (ty * Ws + tx).int()
-    pos = (py * Ws + px).int()
-    col = torch.arange(n)
-    pas |= (col == tgt[:, None]) | (col == pos[:, None])
-    return pas.to(device), tgt.to(device), pos.to(device)
+    py[0::4], px[1::4], py[2::4], px[3::4] = 0, 0, H - 1, W - 1
+    if blocked:
+        grid[env, ty, tx] = True
+        grid[env, py, px] = True
+        tx[0::3] = W  # the wall column
+    occ = bfs_pallas.walled_rows(grid)
+    rows = (occ, env.int(), cls.int(), base, (ty * Ws + tx).int(), (py * Ws + px).int())
+    return _on(rows, device)
 
 
-def margin_rows(H, W, K, seed, device):
-    """Random grids whose targets lie in the margin row below the grid,
-    [n, n + W+1): the JAX kernels seed it, and it reaches the grid's last
-    row."""
+def _on(rows, device):
+    """Query rows moved to `device`, the occupancy and base rows kept
+    16-byte aligned there."""
     import torch
 
-    pas, _, pos = random_rows(H, W, K, seed, device)
-    tgt = (H * (W + 1) + torch.arange(K, device=device) % (W + 1)).int()
-    return pas, tgt, pos
+    occ, env, cls, base, tgt, pos = rows
+    out = []
+    for r in (occ, base):
+        buf = torch.zeros(r.shape[0], r.stride(0), dtype=torch.bool, device=device)
+        buf[:, :r.shape[1]] = r
+        out.append(buf[:, :r.shape[1]])
+    return out[0], env.to(device), cls.to(device), out[1], tgt.to(device), pos.to(device)
 
 
-def phase_kernels(layout_cache):
+def with_targets(rows, tgt):
+    return (*rows[:4], tgt, rows[5])
+
+
+def query_plain(kernel, rows, H, W, iters):
+    """The plain version of K1 or K2 on occupancy-form rows: `_passable_rows`
+    then the kernel's own plain query."""
+    from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas
+
+    plain = {"K1": bfs_bitpack.bitpack_query_plain, "K2": bfs_pallas.query_plain}[kernel]
+    return plain(bfs_pallas._passable_rows(*rows), rows[4], rows[5], H, W, iters)
+
+
+def query_call(kernel, rows, H, W, iters):
+    from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas
+
+    call = {"K1": bfs_bitpack.bitpack_query_call, "K2": bfs_pallas.query_call}[kernel]
+    return call(*rows, H, W, iters)
+
+
+def row_length(kernel, H, W):
+    """L, the padded row the kernel's first frontier wraps in."""
+    from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas
+
+    return 32 * bfs_bitpack._plan(H, W)[2] if kernel == "K1" else bfs_pallas.query_length(H, W)
+
+
+def query_bound(rows, H, W):
+    """(bound_ms, bound_by) of the fused query on `rows`: the occupancy rows
+    of the envs it reads, once each, the two base rows, 16 bytes a row in
+    (env, class, target, own cell) and 8 out; a BFS visits each cell once
+    (four neighbour reads and an add: 5 operations a cell)."""
+    import torch
+
+    occ, env, *_ = rows
+    K, n = env.shape[0], occ.shape[1]
+    envs = int(torch.unique(env[(env >= 0) & (env < occ.shape[0])]).numel())
+    return bound(envs * n + 2 * n + 24 * K, 5 * K * n)
+
+
+def phase_kernels(layout_cache, regs):
+    """K1 and K2 against their own plain versions on the card; times and
+    bounds at the main path's 12,672 rows."""
     import torch
 
     from swarm_ode_tpu_torch.config import EnvConfig
+    from swarm_ode_tpu_torch.env import pathfinding
     from swarm_ode_tpu_torch.env.layout import build_layout
-    from swarm_ode_tpu_torch.env.state import make_params
-    from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas
+    from swarm_ode_tpu_torch.env.state import agent_class, make_params
+    from swarm_ode_tpu_torch.ops import bfs_pallas
     from swarm_ode_tpu_torch.policies.heuristic import heuristic_rollout
 
     cfg = EnvConfig.from_env_id(MEDIUM)
@@ -252,55 +461,120 @@ def phase_kernels(layout_cache):
     pp = make_params(cfg, lay, "cuda")
     layout_cache["medium"] = (cfg, lay, pp)
     H, W, iters = pp.grid_h, pp.grid_w, pp.dynamic_bfs_iters
+    Ws, n = W + 1, pp.grid_h * (pp.grid_w + 1)
     gen = torch.Generator(device="cuda").manual_seed(1)
     state = heuristic_rollout(pp, lay, BATCH, 40, gen).state
     layout_cache["state"] = state
-    cases = [("medium env rows", H, W, iters, *real_rows(pp, state))]
-    cases.append(("medium random", H, W, iters, *random_rows(H, W, 8192, 2, "cuda")))
-    cases.append(("medium random, 8 sweeps", H, W, 8, *random_rows(H, W, 4096, 3, "cuda")))
+    real = real_rows(pp, state)
+    # The main path's compacted rows a step; the real rows must cover them.
+    K = bfs_pallas._round_up(int(BATCH * pp.num_agents * pp.replan_row_frac), 128)
+    if real[1].shape[0] < K:
+        fail("kernels", f"the medium env rows hold {real[1].shape[0]} rows, fewer than the "
+             f"main path's K = {K}")
+    both = ("K1", "K2")
+    cases = [("medium env rows", H, W, iters, real, both)]
+    cases += [(f"medium random, {it} sweeps", H, W, it, random_envs(H, W, 256, 4096, 2 + it, "cuda"),
+               both) for it in (0, 1, 8, 32, 200)]
     xl = EnvConfig.from_env_id("tarware-extralarge-14agvs-7pickers-partialobs-v1")
     xH, xW = build_layout(xl).grid_size
-    cases.append(("extralarge random (45 words)", xH, xW, 40, *random_rows(xH, xW, 4096, 4, "cuda")))
-    cases.append(("80x30 random (79 words)", 80, 30, 64, *random_rows(80, 30, 1024, 5, "cuda")))
-    cases.append(("medium margin-row targets", H, W, iters, *margin_rows(H, W, 2048, 6, "cuda")))
+    cases.append((f"extralarge {xH}x{xW} random", xH, xW, 40,
+                  random_envs(xH, xW, 256, 4096, 4, "cuda"), both))
+    cases.append(("80x30 random", 80, 30, 64, random_envs(80, 30, 64, 1024, 5, "cuda"), both))
+    cases.append(("medium blocked targets and own cells", H, W, iters,
+                  random_envs(H, W, 256, 4096, 6, "cuda", blocked=True), both))
+    # Walled widths of 32 and more, which K1 refuses: the shared-memory form.
+    cases += [(f"{h}x{w} random (Ws = {w + 1})", h, w, 2 * (h + w),
+               random_envs(h, w, 16, 512 if h < 100 else 128, 7 + w, "cuda"), ("K2",))
+              for h, w in ((20, 40), (16, 63), (150, 150))]
+    # Every walled target in [-3Ws, L + 3Ws) of each kernel's padded row L,
+    # and the int32 extremes.
+    for k in both:
+        L = row_length(k, H, W)
+        ts = torch.cat([torch.arange(-3 * Ws, L + 3 * Ws),
+                        torch.tensor([-1, -2**31, 2**31 - 1])]).int().cuda()
+        rows = random_envs(H, W, 64, ts.shape[0], 8, "cuda")
+        cases.append((f"medium target sweep [-3Ws, L + 3Ws), L = {L}", H, W, iters,
+                      with_targets(rows, ts), (k,)))
 
-    rows_checked = 0
     max_err = {"K1": 0, "K2": 0}
-    for name, h, w, it, pas, tgt, pos in cases:
-        d0, nd0 = bfs_pallas.query_plain(pas, tgt, pos, h, w, it)
-        d1, nd1 = bfs_bitpack.bitpack_query_call(pas, tgt, pos, h, w, it)
-        d2, nd2 = bfs_pallas.query_call(pas, tgt, pos, h, w, it)
-        torch.cuda.synchronize()
-        mism = {
-            "K1 vs plain": int(((d1 != d0) | (nd1 != nd0)).sum()),
-            "K2 vs plain": int(((d2 != d0) | (nd2 != nd0)).sum()),
-            "K1 vs K2": int(((d1 != d2) | (nd1 != nd2)).sum()),
-        }
-        for k, (d, nd) in (("K1", (d1, nd1)), ("K2", (d2, nd2))):
-            err = max(int((d - d0).abs().max()), int((nd - nd0).abs().max()))
-            max_err[k] = max(max_err[k], err)
+    for name, h, w, it, rows, kernels in cases:
+        mism = {}
+        for k in kernels:
+            d0, nd0 = query_plain(k, rows, h, w, it)
+            d, nd = query_call(k, rows, h, w, it)
+            torch.cuda.synchronize()
+            mism[f"{k} vs plain"] = int(((d != d0) | (nd != nd0)).sum())
+            max_err[k] = max(max_err[k], int((d - d0).abs().max()), int((nd - nd0).abs().max()))
         reached = float((d0 < bfs_pallas.INF).float().mean())
-        say("kernels", f"{name}: {pas.shape[0]} rows, n={pas.shape[1]}, reached "
-            f"{reached:.3f}, mismatches {mism}")
+        say("kernels", f"{name}: {rows[1].shape[0]} rows, n={rows[0].shape[1]}, {it} sweeps, "
+            f"reached {reached:.3f}, mismatches {mism}")
         if any(mism.values()):
             fail("kernels", f"{name}: {mism}")
-        rows_checked += pas.shape[0] if name == "medium env rows" else 0
-    if rows_checked < 12672:
-        fail("kernels", f"only {rows_checked} real main-path rows checked")
 
-    # Times at the main path's shape: the compacted block of 12,672 rows.
-    K = bfs_pallas._round_up(int(BATCH * pp.num_agents * pp.replan_row_frac), 128)
-    pas, tgt, pos = (t[:K].contiguous() for t in cases[0][4:])
-    times = {
-        "K1": cuda_time_ms(lambda: bfs_bitpack.bitpack_query_call(pas, tgt, pos, H, W, iters), 200),
-        "K2": cuda_time_ms(lambda: bfs_pallas.query_call(pas, tgt, pos, H, W, iters), 50),
-        "plain": cuda_time_ms(lambda: bfs_pallas.query_plain(pas, tgt, pos, H, W, iters), 10),
-    }
-    times["bound"] = bfs_bound(pas, 8)
-    say("kernels", f"times at K={K} rows, n={pas.shape[1]}, {iters} sweeps: "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items() if k != "bound")
-        + f"; bound {times['bound'][0]:.4f} ms ({times['bound'][1]})")
-    return times, max_err
+    # K1 against K2 where the two JAX kernels agree: targets in the grid, and
+    # in the margin row with t + Ws < 32*words.
+    M = row_length("K1", H, W)
+    margin = torch.arange(n, n + Ws, dtype=torch.int32, device="cuda")
+    margin = margin[margin + Ws < M].repeat(64)
+    for name, rows in (("medium env rows", real),
+                       ("medium margin-row targets",
+                        with_targets(random_envs(H, W, 64, margin.shape[0], 9, "cuda"), margin))):
+        d1, nd1 = query_call("K1", rows, H, W, iters)
+        d2, nd2 = query_call("K2", rows, H, W, iters)
+        mism = int(((d1 != d2) | (nd1 != nd2)).sum())
+        say("kernels", f"K1 vs K2, {name}: {rows[1].shape[0]} rows, mismatches {mism}")
+        if mism:
+            fail("kernels", f"K1 and K2 differ on {mism} rows of {name}")
+
+    # The replan query as the env step calls it: no host sync.
+    B, A = state.agent_dir.shape
+    tgt_yx = pp.action_cells[(state.agent_target - 1).clamp(min=0).long()]
+    need = torch.rand(B, A, device="cuda", generator=gen) < 0.2
+    occupied = state_occupancy(pp, state)
+    torch.cuda.synchronize()
+    for kernel in ("bitpack32", "int32"):
+        p = dataclasses.replace(pp, bfs_kernel=kernel)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pathfinding.replan_query(p, occupied, tgt_yx, state.agent_xy.flip(-1),
+                                     agent_class(pp), need)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    say("kernels", "replan_query (both kernels) on the card with host synchronisation "
+        "forbidden: passed")
+
+    # Times at the main path's shape: 12,672 of the real rows, spread over
+    # the envs as the compaction spreads them (about 6 an env).
+    pick = torch.randperm(B * A, generator=torch.Generator().manual_seed(3))[:K].sort().values
+    pick = pick.cuda()
+    rows = (real[0], *(t.index_select(0, pick).contiguous() for t in real[1:3]), real[3],
+            *(t.index_select(0, pick).contiguous() for t in real[4:]))
+    t = {}
+    for k in both:
+        ms, tr = kernel_time_ms(lambda: query_call(k, rows, H, W, iters), 200, "bfs_query_kernel")
+        t[k] = {
+            "ms": ms,
+            "trace_ms": tr,
+            "ms_200_sweeps": cuda_time_ms(lambda: query_call(k, rows, H, W, 200), 200),
+            "plain_ms": device_ms(lambda: query_plain(k, rows, H, W, iters), 10, f"{k} plain"),
+        }
+    mask_ms = device_ms(lambda: bfs_pallas._passable_rows(*rows), 20, "mask build")
+    qb, old_b = query_bound(rows, H, W), bfs_bound(bfs_pallas._passable_rows(*rows), 8)
+    for k in both:
+        for key in ("ms", "trace_ms", "ms_200_sweeps", "plain_ms"):
+            at_least_bound(f"{k} {key}", t[k][key], qb[0])
+        t[k].update(bound_ms=qb[0], bound_by=qb[1], mask_build_ms=mask_ms,
+                    mask_row_bound_ms=old_b[0], max_abs_err=max_err[k],
+                    registers={r: v for r, v in regs.items() if r.startswith("bfs_query")})
+        say("kernels", f"{k} at K={K} rows over {int(torch.unique(rows[1]).numel())} envs, n={n}: "
+            f"{t[k]['ms']:.4f} ms at {iters} sweeps (trace {t[k]['trace_ms']:.4f}), "
+            f"{t[k]['ms_200_sweeps']:.4f} ms at 200; plain "
+            f"{t[k]['plain_ms']:.4f} ms; bound {qb[0]:.4f} ms ({qb[1]}), roofline share "
+            f"{qb[0] / t[k]['ms']:.3f}; earlier yardstick, the (K, n) mask-row bound: "
+            f"{old_b[0]:.4f} ms ({old_b[1]})")
+    say("kernels", f"the mask build the kernel replaces (_passable_rows, its gather "
+        f"included, on the same rows): {mask_ms:.4f} ms")
+    return t
 
 
 def _states_equal(a, b):
@@ -389,19 +663,32 @@ def phase_main_path(layout_cache):
 
     # The counted run: the main path once in each kernel setting, default
     # first. Each setting launches its own kernel once per step, the other
-    # never.
-    bfs_bitpack.LAUNCHES = 0
-    bfs_pallas.LAUNCHES = 0
-    runs = [timed(pp)]
-    by_setting = {"bitpack32": {"K1": bfs_bitpack.LAUNCHES, "K2": bfs_pallas.LAUNCHES}}
-    rate32, deliv32 = timed(pp32)
-    launches = {"K1": bfs_bitpack.LAUNCHES, "K2": bfs_pallas.LAUNCHES}
+    # never, and the kernels build their rows: no (K, n) mask is made.
+    mask_builds = []
+    plain_rows = bfs_pallas._passable_rows
+
+    def counted_rows(*args):
+        mask_builds.append(1)
+        return plain_rows(*args)
+
+    bfs_pallas._passable_rows = counted_rows
+    try:
+        bfs_bitpack.LAUNCHES = 0
+        bfs_pallas.LAUNCHES = 0
+        runs = [timed(pp)]
+        by_setting = {"bitpack32": {"K1": bfs_bitpack.LAUNCHES, "K2": bfs_pallas.LAUNCHES}}
+        rate32, deliv32 = timed(pp32)
+        launches = {"K1": bfs_bitpack.LAUNCHES, "K2": bfs_pallas.LAUNCHES}
+    finally:
+        bfs_pallas._passable_rows = plain_rows
     by_setting["int32"] = {k: launches[k] - by_setting["bitpack32"][k] for k in launches}
     expect = {"bitpack32": {"K1": STEPS, "K2": 0}, "int32": {"K1": 0, "K2": STEPS}}
     if by_setting != expect:
         fail("main-path", f"launch counts {by_setting}, expected {expect}")
+    if mask_builds:
+        fail("main-path", f"_passable_rows built (K, n) masks {len(mask_builds)} times")
     say("main-path", f"medium B={BATCH}, {STEPS} steps, launches per kernel setting: "
-        f"{by_setting}; overflow 0")
+        f"{by_setting}; overflow 0; (K, n) masks built: 0")
 
     runs += [timed(pp) for _ in range(2)]
     say("main-path", f"bitpack32 runs (steps/s, deliveries per env): "
@@ -516,15 +803,20 @@ def phase_fields(layout_cache):
     if mism:
         fail("fields", f"K3 own-cell read differs from K1 on {mism} rows")
 
+    k3, k3_trace = kernel_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, iters), 20,
+                                  "bfs_dist_kernel")
     times = {
-        "K3": cuda_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, iters), 20),
+        "K3": k3,
+        "K3, trace": k3_trace,
         "K3, 200 sweeps": cuda_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, 200), 20),
         # No sweep: the mask in, the staging row and the field out alone.
         "K3, 0 sweeps": cuda_time_ms(lambda: bfs_pallas.bfs_dist_call(pas, tflat, 0), 20),
-        "plain": cuda_time_ms(lambda: bfs_pallas.bfs_dist_plain(pas, tflat, iters), 5),
+        "plain": device_ms(lambda: bfs_pallas.bfs_dist_plain(pas, tflat, iters), 5, "K3 plain"),
     }
     # In: the masks (one byte a cell) and the target; out: the int32 field.
     times["bound"] = bound(pas.numel() + 4 * B * A + 4 * pas.numel(), 5 * pas.numel())
+    for k in ("K3", "K3, trace", "K3, 200 sweeps", "plain"):
+        at_least_bound(k, times[k], times["bound"][0])
     say("fields", f"times at {B * A} rows, {H}x{W}, {iters} sweeps: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items() if k != "bound")
         + f"; bound {times['bound'][0]:.4f} ms ({times['bound'][1]}), roofline share "
@@ -637,15 +929,24 @@ def check_k4(feats, src, dst, valid, S, smi):
     lib_err = float((torch.sparse.mm(adj, feats) - ref).abs().max())
     sel = keep.nonzero()[:, 0]
     dv, mv = dst[sel].long(), msgs[sel].contiguous()
+    ms, tr = kernel_time_ms(lambda: sp.segment_sum_planned(feats, *plan, mean=True), 50,
+                            "segment_sum_kernel")
     t = {
-        "ms": cuda_time_ms(lambda: sp.segment_sum_planned(feats, *plan, mean=True), 50),
-        "plain_ms": cuda_time_ms(lambda: sp.segment_sum_planned_plain(feats, *plan, mean=True), 10),
-        "plan_ms": cuda_time_ms(lambda: sp.segment_plan(dst, valid, S, rows=src, num_rows=S), 50),
-        "library_ms": cuda_time_ms(lambda: torch.sparse.mm(adj, feats), 50),
-        "general_ms": cuda_time_ms(lambda: sp.segment_sum_call(msgs, dst, S, valid), 20),
-        "general_plain_ms": cuda_time_ms(lambda: sp.segment_sum_plain(msgs, dst, S, valid), 10),
-        "general_library_ms": cuda_time_ms(
-            lambda: torch.zeros(S, D, device=feats.device).index_add_(0, dv, mv), 20),
+        "ms": ms,
+        "trace_ms": tr,
+        "plain_ms": device_ms(lambda: sp.segment_sum_planned_plain(feats, *plan, mean=True), 10,
+                              f"K4 plain, D={D}"),
+        "plan_ms": device_ms(lambda: sp.segment_plan(dst, valid, S, rows=src, num_rows=S), 50,
+                             f"K4 plan, D={D}"),
+        "library_ms": device_ms(lambda: torch.sparse.mm(adj, feats), 50, f"sparse.mm, D={D}"),
+        # The plan and the kernel.
+        "general_ms": device_ms(lambda: sp.segment_sum_call(msgs, dst, S, valid), 20,
+                                f"K4 general, D={D}"),
+        "general_plain_ms": device_ms(lambda: sp.segment_sum_plain(msgs, dst, S, valid), 10,
+                                      f"K4 general plain, D={D}"),
+        "general_library_ms": device_ms(
+            lambda: torch.zeros(S, D, device=feats.device).index_add_(0, dv, mv), 20,
+            f"index_add_, D={D}"),
     }
     # Planned: each distinct source row read once, the plan, the output;
     # an add per (edge, feature) and a division per output element.
@@ -654,13 +955,20 @@ def check_k4(feats, src, dst, valid, S, smi):
     # General: the valid messages, every id and flag, the output; the adds.
     E = dst.shape[0]
     t["general_bound_ms"], _ = bound(4 * M * D + 5 * E + 4 * S * D, M * D)
+    # index_add_ over the valid messages moves their rows and the output.
+    for k, b in (("ms", t["bound_ms"]), ("trace_ms", t["bound_ms"]), ("plain_ms", t["bound_ms"]),
+                 ("library_ms", t["bound_ms"]), ("general_ms", t["general_bound_ms"]),
+                 ("general_plain_ms", t["general_bound_ms"]),
+                 ("general_library_ms", bound(4 * M * D + 4 * S * D, M * D)[0])):
+        at_least_bound(f"K4 {k}, D={D}", t[k], b)
     t.update(max_abs_err=max(err, gen_err), cpu_err=cpu_err, lib_err=lib_err)
     say("gde", f"K4 at D={D}: {E} edge slots ({M} valid, {distinct} distinct sources) into {S} "
         f"nodes. Planned mean vs plain: max abs err {err:.3e}, vs the plain version on the CPU "
         f"{cpu_err:.3e} (the design predicts 0); general sum vs plain {gen_err:.3e} (tolerance "
         f"{SUM_RTOL:.2e} x sum of |terms| + 1e-6); two launches bit-identical: {same}; plan and "
         f"planned launch with host sync forbidden: passed")
-    say("gde", f"K4 at D={D} times: planned {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, plan "
+    say("gde", f"K4 at D={D} times: planned {t['ms']:.4f} ms (trace {t['trace_ms']:.4f}, plain "
+        f"{t['plain_ms']:.4f}, plan "
         f"{t['plan_ms']:.4f}, torch.sparse.mm {t['library_ms']:.4f}, max abs err {lib_err:.3e}); "
         f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), roofline share "
         f"{t['bound_ms'] / t['ms']:.3f}; general {t['general_ms']:.4f} ms (plain "
@@ -796,9 +1104,9 @@ def main() -> None:
     # card to the CPU.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    k3_regs = phase_build()
+    regs = phase_build()
     layouts = {}
-    times, max_err = phase_kernels(layouts)
+    query_times = phase_kernels(layouts, regs)
     k3_times, k3_err = phase_fields(layouts)
     phase_card_vs_cpu(layouts)
     by_setting = phase_main_path(layouts)
@@ -807,30 +1115,32 @@ def main() -> None:
     phase_distribution(layouts)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
-    def entry(k, name, source, replaces, setting):
+    def entry(k, name, replaces, setting):
         # `launches`: the counted main-path run (both settings); the other
         # setting launched this kernel 0 times, as launches_by_setting shows.
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": sum(c[k] for c in by_setting.values()),
+        # Times at 12,672 medium rows; mask_build_ms is the plain row build
+        # the kernel replaces, mask_row_bound_ms the earlier yardstick (the
+        # bound of a query over prebuilt (K, n) masks).
+        return {"name": name, "route": "cuda", "source": "swarm_ode_tpu_torch/csrc/bfs_query.cu",
+                "replaces": replaces, "launches": sum(c[k] for c in by_setting.values()),
                 "bfs_kernel_setting": setting,
                 "launches_by_setting": {s: c[k] for s, c in by_setting.items()},
-                "max_abs_err": max_err[k], "ms": times[k], "plain_ms": times["plain"],
-                "bound_ms": times["bound"][0], "bound_by": times["bound"][1], "library_ms": None}
+                "library_ms": None, **query_times[k]}
 
     planned, narrow = k4[435], k4[HIDDEN]
     record = {"kernels": [
-        entry("K1", "bitpack_query (K1)", "swarm_ode_tpu_torch/csrc/bfs_bitpack.cu",
-              "swarm_ode_tpu/ops/bfs_bitpack.py:75", "bitpack32 (default)"),
-        entry("K2", "bfs_query_int32 (K2)", "swarm_ode_tpu_torch/csrc/bfs_query.cu",
-              "swarm_ode_tpu/ops/bfs_pallas.py:79", "int32"),
+        entry("K1", "bitpack_query (K1)", "swarm_ode_tpu/ops/bfs_bitpack.py:75",
+              "bitpack32 (default)"),
+        entry("K2", "bfs_query_int32 (K2)", "swarm_ode_tpu/ops/bfs_pallas.py:79", "int32"),
         # `launches`: the counted full-field rollout (bfs_backend="xla").
         {"name": "bfs_dist (K3)", "route": "cuda", "source": "swarm_ode_tpu_torch/csrc/bfs_dist.cu",
          "replaces": "swarm_ode_tpu/ops/bfs_pallas.py:69", "launches": k3_launches,
          "path": "full-field rollout, bfs_backend=xla", "max_abs_err": k3_err,
-         "ms": k3_times["K3"], "plain_ms": k3_times["plain"], "bound_ms": k3_times["bound"][0],
+         "ms": k3_times["K3"], "trace_ms": k3_times["K3, trace"], "plain_ms": k3_times["plain"],
+         "bound_ms": k3_times["bound"][0],
          "bound_by": k3_times["bound"][1], "library_ms": None,
          "ms_200_sweeps": k3_times["K3, 200 sweeps"], "ms_0_sweeps": k3_times["K3, 0 sweeps"],
-         "registers": k3_regs[0]},
+         "registers": regs["bfs_dist_kernel<1>"][0]},
         # `launches`: the counted GDE serving run. Times of the served form
         # (planned, mean) at D = 435, the observation width; library_ms is
         # torch.sparse.mm of the CSR adjacency. D = 64 and the general form
@@ -839,10 +1149,12 @@ def main() -> None:
          "source": "swarm_ode_tpu_torch/csrc/segment_sum.cu",
          "replaces": "swarm_ode_tpu/ops/segment_pallas.py:25", "launches": k4_launches,
          "path": "GDE serving", "max_abs_err": max(planned["max_abs_err"], narrow["max_abs_err"]),
-         "ms": planned["ms"], "plain_ms": planned["plain_ms"], "bound_ms": planned["bound_ms"],
+         "ms": planned["ms"], "trace_ms": planned["trace_ms"], "plain_ms": planned["plain_ms"],
+         "bound_ms": planned["bound_ms"],
          "bound_by": planned["bound_by"], "library_ms": planned["library_ms"],
          "plan_ms": planned["plan_ms"],
-         "d64": {k: narrow[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "plan_ms")},
+         "d64": {k: narrow[k] for k in ("ms", "trace_ms", "plain_ms", "bound_ms", "library_ms",
+                                        "plan_ms")},
          "general": {D: {k[len("general_"):]: k4[D][k] for k in
                          ("general_ms", "general_plain_ms", "general_bound_ms",
                           "general_library_ms")} for D in k4}},

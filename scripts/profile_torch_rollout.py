@@ -12,10 +12,11 @@ GDE server goes, on one CUDA GPU.
    per cell.
 2. Medium, B = 2048: dispatcher and step timed apart, synchronised after
    each (host bound, so the sum exceeds the unsynchronised step).
-3. Medium, B = 2048, compacted and full-field replan: a torch.profiler
-   trace of 10 steps each: device busy time (kernels and copies), kernel
-   launches and copies per step, and the device ops that take the most
-   time.
+3. Medium, B = 2048, compacted replan in both bfs_kernel settings and
+   full-field replan: a torch.profiler trace of 10 steps each: device busy
+   time (kernels and copies), kernel launches and copies per step, the
+   device ops that take the most time, and (in the JSON file) every device
+   op's time and launches per step, the BFS kernels' among them.
 4. GDE serving (medium, windows of 5 x 28 x 435, euler over t = 0..4,
    seeded weights of the flagship's shape) at B = 128, 512 and 2048
    windows: synchronised ms per batch of its stages (observe + push_frame,
@@ -128,17 +129,25 @@ def _summary(events, steps):
     busy_us = sum(e.time_range.elapsed_us() for e in device)
     launches = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     copies = sum(1 for e in events if e.name.startswith("cudaMemcpy"))
-    by_name = {}
+    by_name, count = {}, {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        count[e.name] = count.get(e.name, 0) + 1
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         # None: the profiler saw no device activity, so nothing was measured.
         "device_busy_ms_per_step": busy_us / 1e3 / steps if device else None,
         "launches_per_step": launches / steps,
         "memcpy_per_step": copies / steps,
-        "top_device_ops_ms_per_step": {k[:80]: v / 1e3 / steps for k, v in top},
+        "top_device_ops_ms_per_step": {k[:80]: v / 1e3 / steps for k, v in ops[:8]},
+        # Every device op: ms and launches per step (the JSON file only).
+        "device_ops_per_step": {k[:80]: [v / 1e3 / steps, count[k] / steps] for k, v in ops},
     }
+
+
+def _brief(prof):
+    """A trace summary without its full list of device ops, for printing."""
+    return json.dumps({k: v for k, v in prof.items() if k != "device_ops_per_step"})
 
 
 def served_windows(lay, pp, B, gen):
@@ -263,10 +272,13 @@ def main() -> None:
     print(f"medium B=2048, synchronised ms/step: dispatcher {pol_ms:.3f}, step {step_ms:.3f}",
           flush=True)
     prof = trace(lay, pp, 2048, 10, gen)
-    print(f"medium B=2048 trace of 10 steps: {json.dumps(prof)}", flush=True)
+    print(f"medium B=2048 trace of 10 steps: {_brief(prof)}", flush=True)
+    ilay, ipp = built[(MEDIUM, "int32", "auto")]
+    prof_int32 = trace(ilay, ipp, 2048, 10, gen)
+    print(f"medium B=2048 bfs_kernel=int32 trace of 10 steps: {_brief(prof_int32)}", flush=True)
     xlay, xpp = built[(MEDIUM, "auto", "xla")]
     prof_xla = trace(xlay, xpp, 2048, 10, gen)
-    print(f"medium B=2048 full-field trace of 10 steps: {json.dumps(prof_xla)}", flush=True)
+    print(f"medium B=2048 full-field trace of 10 steps: {_brief(prof_xla)}", flush=True)
 
     gde = []
     for B in GDE_BATCHES:
@@ -275,13 +287,14 @@ def main() -> None:
         print(f"gde serving: {json.dumps(row)}", flush=True)
         if B == 512:
             gde_prof = gde_trace(*server)
-    print(f"gde serving B=512 trace of 5 batches: {json.dumps(gde_prof)}", flush=True)
+    print(f"gde serving B=512 trace of 5 batches: {_brief(gde_prof)}", flush=True)
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cells": cells,
                    "split_ms_per_step": {"dispatcher": pol_ms, "step": step_ms},
-                   "trace_medium_2048": prof, "trace_medium_2048_full_field": prof_xla,
+                   "trace_medium_2048": prof, "trace_medium_2048_int32": prof_int32,
+                   "trace_medium_2048_full_field": prof_xla,
                    "gde_serving": gde, "trace_gde_512": gde_prof}, f, indent=1)
     print(f"wrote {args.out}", flush=True)
 

@@ -63,6 +63,8 @@ def env_params_from_numpy(fields: Mapping[str, object], device="cuda") -> EnvPar
     dev = torch.device(device)
     kwargs = {}
     for f in dataclasses.fields(EnvParams):
+        if not f.init:  # derived in EnvParams.__post_init__
+            continue
         if f.name == "device":
             kwargs[f.name] = dev
         elif isinstance(fields[f.name], np.ndarray):

@@ -1,4 +1,4 @@
-// Shared pieces of the two replan-BFS kernels (bfs_bitpack.cu, bfs_query.cu).
+// Shared pieces of the BFS kernels (bfs_query.cu, bfs_dist.cu).
 #pragma once
 
 #include <cstdint>

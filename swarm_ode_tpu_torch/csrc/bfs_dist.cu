@@ -18,25 +18,17 @@
 // where no shift needs to wrap. This kernel seeds that first frontier
 // directly, then grows it.
 //
-// The wavefront in bits. A warp owns a row. The walled grid packs one bit a
-// cell into words = ceil(n / 32) uint32 words. A sweep is
-//     new = ((r | r<<1 | r>>1 | r<<Ws | r>>Ws) & passable) & ~r;  r |= new
-// with the carries between words. A cell first reached at sweep s has
-// distance s: the bits of `new` are written into a per-warp int32 staging
-// row in shared memory, INF elsewhere, so each distance is written once and
-// no int32 field is rewritten per sweep. A sweep that reaches no new cell
-// (a warp vote) ends the row early: later sweeps would change nothing. The
-// staging row then goes out unwalled in coalesced stores.
-//
-// Two forms of the sweep, one per template instantiation:
-// - registers (Ws < 32 and words <= 64, every layout the env ships): lane l
-//   holds words l, l+32, ... (SLOTS of them) with their passable masks, and
-//   the carries come from the neighbouring words over __shfl_*_sync, as in
-//   K1 (csrc/bfs_bitpack.cu). A +-Ws shift then crosses at most one word.
-// - shared memory (wider rows, or more than 64 words): the words live in
-//   two per-warp buffers in shared memory; a +-Ws shift reads words w -+ q
-//   and w -+ (q+1), q = Ws / 32, and shifts by Ws % 32 bits (no shift at
-//   all when that is 0: a shift by 32 is undefined).
+// The wavefront in bits (bfs_wavefront.cuh, shared with the replan queries
+// K1/K2): a warp owns a row, one bit a walled cell, and a sweep grows the
+// reached bits by +-1 and +-Ws with carries between words. A cell first
+// reached at sweep s has distance s: the bits a sweep adds are written into
+// a per-warp int32 staging row in shared memory, INF elsewhere, so each
+// distance is written once and no int32 field is rewritten per sweep. A
+// sweep that reaches no new cell (a warp vote) ends the row early: later
+// sweeps would change nothing. The staging row then goes out unwalled in
+// coalesced stores. The sweep runs in registers where Ws < 32 and the row
+// has at most 64 words (every layout the env ships), in shared memory
+// otherwise.
 //
 // The mask comes in as one coalesced pass over the row's H*W bytes into the
 // staging row (walled), then one __ballot_sync per word packs it.
@@ -52,12 +44,14 @@
 #include <cstdint>
 
 #include "bfs_common.cuh"
+#include "bfs_wavefront.cuh"
 
 namespace {
 
+using swarm_bfs::kFull;
 using swarm_bfs::kInf;
+using swarm_bfs::Seed;
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarpsPerBlock = 4;
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -119,36 +113,6 @@ __device__ __forceinline__ void record(int* stage, uint32_t fresh, int w, int s)
   }
 }
 
-// The walled target (int32, wrapping) and the cells of the first frontier:
-// c[0] the target, c[1..4] its neighbours modulo HWp; -1 where a cell is
-// outside the grid or there is no seed.
-struct Seed {
-  int c[5];
-  __device__ Seed(int t, const Grid& g) {
-    int qd = t / g.W, rd = t % g.W;
-    if (rd < 0) {
-      rd += g.W;
-      --qd;
-    }
-    const int s = static_cast<int>(static_cast<unsigned>(qd) * static_cast<unsigned>(g.Ws) +
-                                   static_cast<unsigned>(rd));
-    const bool seeded = s >= 0 && s < g.HWp;
-    const int nb[5] = {s, s + 1 == g.HWp ? 0 : s + 1, s == 0 ? g.HWp - 1 : s - 1,
-                       s + g.Ws >= g.HWp ? s + g.Ws - g.HWp : s + g.Ws,
-                       s - g.Ws < 0 ? s - g.Ws + g.HWp : s - g.Ws};
-#pragma unroll
-    for (int k = 0; k < 5; ++k) c[k] = seeded && nb[k] < g.n ? nb[k] : -1;
-  }
-  // Bits of word w among the first frontier (k >= 1) and the target (k = 0).
-  __device__ uint32_t bits(int w, bool target) const {
-    uint32_t b = 0u;
-#pragma unroll
-    for (int k = 0; k < 5; ++k)
-      if ((k == 0) == target && c[k] >= 0 && (c[k] >> 5) == w) b |= 1u << (c[k] & 31);
-    return b;
-  }
-};
-
 // Out: the staging row written unwalled, neighbouring lanes on neighbouring
 // addresses.
 __device__ void store_row(const int* stage, int* __restrict__ orow, const Grid& g, int lane) {
@@ -176,79 +140,28 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   uint32_t* pw = reinterpret_cast<uint32_t*>(stage + g.n);
 
   load_mask(pas + static_cast<size_t>(row) * g.hw, stage, pw, g, lane);
-  const Seed seed(tgt[row], g);
+  const Seed seed(swarm_bfs::walled_index(tgt[row], g.W, g.Ws), g.n, g.Ws, g.HWp);
   if (lane == 0 && seed.c[0] >= 0) stage[seed.c[0]] = 0;  // even when impassable
 
   if (g.iters > 0) {
+    const auto rec = [&](int w, uint32_t fresh, int it) { record(stage, fresh, w, it); };
     if constexpr (SLOTS > 0) {
-      const int Ws = g.Ws;
       uint32_t p[SLOTS], r[SLOTS];
-      bool any = false;
 #pragma unroll
       for (int s = 0; s < SLOTS; ++s) {
         const int w = lane + 32 * s;
         p[s] = w < g.words ? pw[w] : 0u;
-        r[s] = (seed.bits(w, false) | seed.bits(w, true)) & p[s];
-        const uint32_t fresh = r[s] & ~seed.bits(w, true);
-        record(stage, fresh, w, 1);
-        any |= fresh != 0u;
       }
-      for (int it = 2; it <= g.iters && __any_sync(kFull, any); ++it) {
-        uint32_t prev[SLOTS], next[SLOTS];
-#pragma unroll
-        for (int s = 0; s < SLOTS; ++s) {
-          const uint32_t up = __shfl_up_sync(kFull, r[s], 1);    // word - 1
-          const uint32_t dn = __shfl_down_sync(kFull, r[s], 1);  // word + 1
-          const uint32_t wrap_prev = s > 0 ? __shfl_sync(kFull, r[s > 0 ? s - 1 : 0], 31) : 0u;
-          const uint32_t wrap_next =
-              s + 1 < SLOTS ? __shfl_sync(kFull, r[s + 1 < SLOTS ? s + 1 : s], 0) : 0u;
-          prev[s] = lane == 0 ? wrap_prev : up;
-          next[s] = lane == 31 ? wrap_next : dn;
-        }
-        any = false;
-#pragma unroll
-        for (int s = 0; s < SLOTS; ++s) {
-          const uint32_t x = r[s];
-          const uint32_t grown = (x << 1) | (prev[s] >> 31) | (x >> 1) | (next[s] << 31) |
-                                 (x << Ws) | (prev[s] >> (32 - Ws)) | (x >> Ws) |
-                                 (next[s] << (32 - Ws));
-          const uint32_t fresh = grown & p[s] & ~x;
-          record(stage, fresh, lane + 32 * s, it);
-          any |= fresh != 0u;
-          r[s] = x | fresh;
-        }
-      }
+      bool any = swarm_bfs::seed_regs(r, p, seed, lane, rec);
+      for (int it = 2; it <= g.iters && __any_sync(kFull, any); ++it)
+        any = swarm_bfs::sweep_regs(r, p, g.Ws, lane, it, rec);
     } else {
-      const int q = g.Ws >> 5, rr = g.Ws & 31;
       uint32_t* cur = pw + g.words;
       uint32_t* nxt = cur + g.words;
-      bool any = false;
-      for (int w = lane; w < g.words; w += 32) {
-        const uint32_t r = (seed.bits(w, false) | seed.bits(w, true)) & pw[w];
-        cur[w] = r;
-        const uint32_t fresh = r & ~seed.bits(w, true);
-        record(stage, fresh, w, 1);
-        any |= fresh != 0u;
-      }
+      bool any = swarm_bfs::seed_smem(cur, pw, g.words, seed, lane, rec);
       __syncwarp();
       for (int it = 2; it <= g.iters && __any_sync(kFull, any); ++it) {
-        any = false;
-        for (int w = lane; w < g.words; w += 32) {
-          const uint32_t x = cur[w];
-          const uint32_t a = w > 0 ? cur[w - 1] : 0u;
-          const uint32_t b = w + 1 < g.words ? cur[w + 1] : 0u;
-          const uint32_t c0 = w - q >= 0 ? cur[w - q] : 0u;
-          const uint32_t c1 = w - q - 1 >= 0 ? cur[w - q - 1] : 0u;
-          const uint32_t d0 = w + q < g.words ? cur[w + q] : 0u;
-          const uint32_t d1 = w + q + 1 < g.words ? cur[w + q + 1] : 0u;
-          const uint32_t from_up = rr ? (c0 << rr) | (c1 >> (32 - rr)) : c0;      // cell - Ws
-          const uint32_t from_down = rr ? (d0 >> rr) | (d1 << (32 - rr)) : d0;    // cell + Ws
-          const uint32_t grown = (x << 1) | (a >> 31) | (x >> 1) | (b << 31) | from_up | from_down;
-          const uint32_t fresh = grown & pw[w] & ~x;
-          nxt[w] = x | fresh;
-          record(stage, fresh, w, it);
-          any |= fresh != 0u;
-        }
+        any = swarm_bfs::sweep_smem(cur, nxt, pw, g.words, g.Ws, lane, it, rec);
         __syncwarp();
         uint32_t* tmp = cur;
         cur = nxt;

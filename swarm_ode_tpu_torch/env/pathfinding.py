@@ -26,19 +26,13 @@ from swarm_ode_tpu_torch.ops.bfs_pallas import (
     bfs_query_occ_batched,
     query_call,
     select_next_hop,
+    walled_rows,
 )
 
 INF32 = INF
 
 # The replan query each `EnvParams.bfs_kernel` value runs: K1 or K2.
 QUERIES = {"bitpack32": bitpack_query_call, "int32": query_call}
-
-
-def walled(grid: torch.Tensor) -> torch.Tensor:
-    """(..., H, W) -> (..., H*(W+1)): append a False wall column to every row."""
-    wall = torch.zeros(*grid.shape[:-1], 1, dtype=grid.dtype, device=grid.device)
-    out = torch.cat([grid, wall], dim=-1)
-    return out.reshape(*grid.shape[:-2], -1)
 
 
 def passable_grid(params: EnvParams, occupied, targets_yx, self_yx, classes):
@@ -120,7 +114,7 @@ def replan_query(params: EnvParams, occupied, targets_yx, self_yx, classes, need
     tgt_w = targets_yx[..., 0] * Ws + targets_yx[..., 1]
     pos_w = self_yx[..., 0] * Ws + self_yx[..., 1]
     return bfs_query_occ_batched(
-        walled(occupied), tgt_w, pos_w, classes, need, walled(params.picker_passable),
+        walled_rows(occupied), tgt_w, pos_w, classes, need, params.replan_base,
         params.grid_h, W, params.dynamic_bfs_iters,
         row_frac=params.replan_row_frac, rows_per_block=128,
         query=QUERIES[params.bfs_kernel],

@@ -18,6 +18,7 @@ from swarm_ode_tpu_torch.config import EnvConfig
 from swarm_ode_tpu_torch.definitions import AgentType
 from swarm_ode_tpu_torch.env.layout import Layout, build_layout
 from swarm_ode_tpu_torch.env.queries import cell_max, id_flags, occupant_grid
+from swarm_ode_tpu_torch.ops.bfs_pallas import class_base_rows
 
 
 BFS_BACKENDS = ("auto", "pallas", "xla")
@@ -70,6 +71,12 @@ class EnvParams:
     highway_cells: torch.Tensor  # (Hw, 2) int32, y-major order
     field_dist_picker: torch.Tensor  # (T, H, W) int32
     field_next_dir_picker: torch.Tensor  # (T, H, W) int8
+    # (2, H*(W+1)) bool, walled: the replan query's class base rows (free
+    # grid, picker_passable), made from picker_passable with the params.
+    replan_base: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "replan_base", class_base_rows(self.picker_passable))
 
 
 @dataclasses.dataclass

@@ -30,8 +30,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # except the *_smem_bytes queries returns a cudaError_t.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "swarm_bitpack_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "swarm_bfs_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "swarm_bfs_query": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "swarm_bfs_query_smem_bytes": (_I, _I),
     "swarm_bfs_dist": (_P, _P, _P, _I, _I, _I, _I, _P),
     "swarm_bfs_dist_smem_bytes": (_I, _I),

@@ -1,39 +1,33 @@
-"""Bit-packed wavefront BFS (K1): 1 bit per cell of the walled grid.
+"""Bit-packed replan query (K1): 1 bit per cell of the walled grid.
 
 Counterpart of `swarm_ode_tpu/ops/bfs_bitpack.py`. For unit edge weights
 the replan BFS is pure reachability, `reached |= (neighbour shifts) &
-passable`, one bit per cell: a query's grid packs into
-words = ceil((H*(W+1) + W+1) / 32) uint32 words (medium: 19, extralarge: 45).
-A cell at BFS distance d stays unset for exactly the first d sweeps, so the
-number of sweeps that find it unset is its distance once the final mask shows
-it reached.
+passable`, one bit per cell: the JAX kernel packs a query's grid into
+words = ceil((H*(W+1) + W+1) / 32) uint32 words (medium: 19, extralarge: 45)
+and its neighbour carries wrap modulo those M = 32*words bits.
 
-`bitpack_query_call` launches `csrc/bfs_bitpack.cu` (one warp per query, the
-words in registers, the next hop chosen in the kernel), which replaces the
-Pallas kernel `_bitpack_kernel` and the host-side next-hop selection of the
-JAX wrapper of the same name. Its plain version is
-`ops/bfs_pallas.query_plain`: the bit-packed and the int32 kernels compute
-the same (distance, next hop), so one plain version serves both.
+`bitpack_query_call` launches `csrc/bfs_query.cu`, the kernel that also
+serves the int32 query (K2, `ops/bfs_pallas.query_call`), over rows padded
+to M cells: it replaces the Pallas kernel `_bitpack_kernel` and the
+host-side next-hop selection of the JAX wrapper of the same name. Its plain
+version is `bitpack_query_plain`.
 """
 from __future__ import annotations
 
-import torch
+from swarm_ode_tpu_torch.ops import bfs_pallas
 
-from swarm_ode_tpu_torch.ops import _build
-from swarm_ode_tpu_torch.ops.bfs_pallas import check_query_args, query_plain
-
-# Launches of K1 (csrc/bfs_bitpack.cu) in this process.
+# Launches of K1 (csrc/bfs_query.cu with the bit-packed query's row length).
 LAUNCHES = 0
 
 
 def _plan(H: int, W: int):
-    """(Ws, n, words) of the packed layout; raises where the kernel's
+    """(Ws, n, words) of the packed layout; raises where the JAX kernel's
     one-word carry does not hold."""
     Ws = W + 1
     if Ws >= 32:
-        # The cross-word neighbour carry uses `r << Ws` / `prev >> (32-Ws)`,
-        # which assumes a +-Ws shift crosses at most one 32-bit word; wider
-        # walled rows would silently mis-pathfind.
+        # The JAX kernel's cross-word neighbour carry uses `r << Ws` /
+        # `prev >> (32-Ws)`, which assumes a +-Ws shift crosses at most one
+        # 32-bit word; wider walled rows would silently mis-pathfind.
         raise ValueError(
             f"bitpack32 requires walled width W+1 < 32, got {Ws}; "
             "use bfs_kernel='int32' for this layout"
@@ -45,28 +39,29 @@ def _plan(H: int, W: int):
     return Ws, n, words
 
 
-def bitpack_query_call(pas, tgt, pos, H: int, W: int, iters: int):
-    """K1 replan query. pas: (K, n) bool passable rows, n = H*(W+1);
-    tgt, pos: (K,) int32 walled-flat cells. Returns (d, nd), each (K,) int32,
-    identical to `bfs_pallas.query_call`.
+def bitpack_query_plain(pas, tgt, pos, H: int, W: int, iters: int):
+    """K1's plain version, `_bitpack_kernel`'s answer: the replan query over
+    each row padded to M = 32*words cells, neighbours wrapping modulo M.
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    pas: (K, n) bool or {0, 1} passable masks, n = H*(W+1); tgt: (K,) walled
+    targets, any int32 (one in [0, M) starts at 0); pos: (K,) walled own
+    cells in [0, n). Returns (d, nd), each (K,) int32. Where t + W+1 < M
+    (every target in the grid) it equals `bfs_pallas.query_plain`."""
+    _, _, words = _plan(H, W)
+    return bfs_pallas._query_plain(pas, tgt, pos, H, W, iters, 32 * words)
+
+
+def bitpack_query_call(occ, env, cls, base, tgt, pos, H: int, W: int, iters: int):
+    """K1 replan query: `csrc/bfs_query.cu` over rows padded to 32*words for
+    CUDA tensors, `_passable_rows` + `bitpack_query_plain` for CPU tensors.
+    Arguments as `bfs_pallas.query_call`'s. Returns (d, nd), each (K,)
+    int32."""
     global LAUNCHES
-    Ws, n, words = _plan(H, W)
-    if pas.device.type == "cpu":
-        return query_plain(pas, tgt, pos, H, W, iters)
-    K, _ = check_query_args(pas, tgt, pos, H, W)
-    d = torch.empty(K, dtype=torch.int32, device=pas.device)
-    nd = torch.empty(K, dtype=torch.int32, device=pas.device)
-    if K == 0:
-        return d, nd
-    lib = _build.library()
-    with torch.cuda.device(pas.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.swarm_bitpack_query(
-            pas.data_ptr(), tgt.data_ptr(), pos.data_ptr(), d.data_ptr(), nd.data_ptr(),
-            K, n, Ws, words, int(iters), stream,
-        )
-    _build.check(err, "swarm_bitpack_query")
-    LAUNCHES += 1
-    return d, nd
+    _, _, words = _plan(H, W)
+    if occ.device.type == "cpu":
+        pas = bfs_pallas._passable_rows(occ, env, cls, base, tgt, pos)
+        return bitpack_query_plain(pas, tgt, pos, H, W, iters)
+    out = bfs_pallas.launch_query(occ, env, cls, base, tgt, pos, H, W, iters, 32 * words)
+    if env.shape[0]:
+        LAUNCHES += 1
+    return out

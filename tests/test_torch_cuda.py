@@ -10,17 +10,51 @@ import torch
 from swarm_ode_tpu_torch.ops import bfs_bitpack, bfs_pallas, segment_pallas
 
 
-def _random_rows(H, W, K, seed):
+def _random_envs(H, W, B, K, seed):
+    """Occupancy-form query inputs on the CPU: B random envs, K rows over
+    them (own cells on every edge and corner), class base rows of a random
+    highway."""
     g = torch.Generator().manual_seed(seed)
     Ws = W + 1
-    n = H * Ws
-    grid = torch.rand(K, H, W, generator=g) < 0.75
-    pas = torch.cat([grid, torch.zeros(K, H, 1, dtype=torch.bool)], 2).reshape(K, n)
-    tgt = (torch.randint(0, H, (K,), generator=g) * Ws + torch.randint(0, W, (K,), generator=g)).int()
-    pos = (torch.randint(0, H, (K,), generator=g) * Ws + torch.randint(0, W, (K,), generator=g)).int()
-    col = torch.arange(n)
-    pas |= (col == tgt[:, None]) | (col == pos[:, None])
-    return pas, tgt, pos
+    occ = bfs_pallas.walled_rows(torch.rand(B, H, W, generator=g) < 0.1)
+    base = bfs_pallas.class_base_rows(torch.rand(H, W, generator=g) < 0.85)
+    env = torch.randint(0, B, (K,), generator=g).int()
+    cls = torch.randint(0, 2, (K,), generator=g).int()
+    py, px = torch.randint(0, H, (K,), generator=g), torch.randint(0, W, (K,), generator=g)
+    py[0::4], px[1::4], py[2::4], px[3::4] = 0, 0, H - 1, W - 1
+    tgt = torch.randint(0, H, (K,), generator=g) * Ws + torch.randint(0, W, (K,), generator=g)
+    return occ, env, cls, base, tgt.int(), (py * Ws + px).int()
+
+
+def _to(args, device):
+    """Query inputs on `device`, the rows kept 16-byte aligned there."""
+    occ, env, cls, base, tgt, pos = args
+    rows = []
+    for r in (occ, base):
+        buf = torch.zeros(r.shape[0], r.stride(0), dtype=torch.bool, device=device)
+        buf[:, :r.shape[1]] = r
+        rows.append(buf[:, :r.shape[1]])
+    return rows[0], env.to(device), cls.to(device), rows[1], tgt.to(device), pos.to(device)
+
+
+# Each query wrapper with its plain version and its launch counter.
+QUERIES = {
+    "K1": (bfs_bitpack.bitpack_query_call, bfs_bitpack.bitpack_query_plain, bfs_bitpack),
+    "K2": (bfs_pallas.query_call, bfs_pallas.query_plain, bfs_pallas),
+}
+
+
+def _check_query(kernel, args, H, W, iters, device):
+    """One launch of `kernel` on the card against `_passable_rows` + its
+    plain version on the CPU; returns the card's (d, nd) on the CPU."""
+    call, plain, counter = QUERIES[kernel]
+    ref = plain(bfs_pallas._passable_rows(*args), args[4], args[5], H, W, iters)
+    before = counter.LAUNCHES
+    d, nd = call(*_to(args, device), H, W, iters)
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == before + 1
+    assert torch.equal(d.cpu(), ref[0]) and torch.equal(nd.cpu(), ref[1]), kernel
+    return d.cpu(), nd.cpu()
 
 
 @pytest.fixture
@@ -35,29 +69,106 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,W", [(25, 22), (45, 30), (80, 30)])  # 19, 45 and 79 words
+@pytest.mark.parametrize("H,W", [(25, 22), (45, 30), (80, 30)])  # 18, 44 and 77 words
 def test_kernels_match_plain(cuda, H, W):
-    cpu = _random_rows(H, W, 512, seed=H + W)
-    ref = bfs_pallas.query_plain(*cpu, H, W, 40)
-    gpu = tuple(t.to(cuda) for t in cpu)
-    for call, counter in ((bfs_bitpack.bitpack_query_call, bfs_bitpack),
-                          (bfs_pallas.query_call, bfs_pallas)):
-        before = counter.LAUNCHES
-        d, nd = call(*gpu, H, W, 40)
-        torch.cuda.synchronize()
-        assert counter.LAUNCHES == before + 1
-        assert torch.equal(d.cpu(), ref[0]) and torch.equal(nd.cpu(), ref[1])
+    """K1 and K2, building their rows from the envs' occupancy, against
+    `_passable_rows` + each one's plain version, bit for bit; on these
+    in-grid targets the two agree."""
+    args = _random_envs(H, W, 64, 512, seed=H + W)
+    d1, nd1 = _check_query("K1", args, H, W, 40, cuda)
+    d2, nd2 = _check_query("K2", args, H, W, 40, cuda)
+    assert torch.equal(d1, d2) and torch.equal(nd1, nd2)
+    assert (d1 < bfs_pallas.INF).any() and (d1 >= bfs_pallas.INF).any()
 
 
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
-    pas, tgt, pos = (t.to(cuda) for t in _random_rows(9, 8, 16, seed=0))
+    occ, env, cls, base, tgt, pos = _to(_random_envs(9, 8, 4, 16, seed=0), cuda)
     with pytest.raises(ValueError, match="int32"):
-        bfs_bitpack.bitpack_query_call(pas, tgt.long(), pos, 9, 8, 4)
-    with pytest.raises(ValueError, match="contiguous"):
-        bfs_pallas.query_call(pas.t().contiguous().t(), tgt, pos, 9, 8, 4)
-    with pytest.raises(ValueError, match="pas must be"):
-        bfs_pallas.query_call(pas[:, :-1], tgt, pos, 9, 8, 4)
+        bfs_bitpack.bitpack_query_call(occ, env, cls, base, tgt.long(), pos, 9, 8, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        bfs_pallas.query_call(occ.contiguous(), env, cls, base, tgt, pos, 9, 8, 4)
+    with pytest.raises(ValueError, match="base must be"):
+        bfs_pallas.query_call(occ, env, cls, base[:1], tgt, pos, 9, 8, 4)
+    with pytest.raises(ValueError, match="one device"):
+        bfs_pallas.query_call(occ, env, cls, base, tgt.cpu(), pos, 9, 8, 4)
+    with pytest.raises(ValueError, match="W\\+1 < 32"):
+        bfs_bitpack.bitpack_query_call(occ, env, cls, base, tgt, pos, 3, 31, 4)
+    # A row of 630,700 cells needs 12 bytes a word in the shared-memory form.
+    big = bfs_pallas.walled_rows(torch.zeros(2, 700, 900, dtype=torch.bool, device=cuda))
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        bfs_pallas.query_call(big, one, one, big, one, one, 700, 900, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(20, 40), (16, 63), (150, 150)])  # Ws 41, 64 (whole words), 151
+def test_int32_query_at_wide_rows(cuda, H, W):
+    """K2 at walled widths of 32 and more (the shared-memory form), which K1
+    refuses."""
+    _check_query("K2", _random_envs(H, W, 8, 256, seed=H * W), H, W, 2 * (H + W), cuda)
+
+
+@pytest.mark.cuda
+def test_queries_stop_early_without_changing_the_answer(cuda):
+    """200 sweeps give the plain version's answer, and the 32-sweep answer
+    wherever every probe settles within 32 sweeps (the early exits); rows
+    where nothing is reachable (an env index outside the batch: every cell
+    occupied) give (INF, -1) at any sweep count."""
+    H, W = 25, 22
+    args = _random_envs(H, W, 64, 2048, seed=3)
+    for kernel in QUERIES:
+        d200, nd200 = _check_query(kernel, args, H, W, 200, cuda)
+        d32, nd32 = _check_query(kernel, args, H, W, 32, cuda)
+        settled = d32 < bfs_pallas.INF
+        assert settled.float().mean() > 0.5
+        assert torch.equal(d32[settled], d200[settled]) and torch.equal(nd32[settled], nd200[settled])
+        assert (d200[~settled] > 32).any()  # reached only beyond 32 sweeps
+    occ, env, cls, base, tgt, pos = args
+    cut = (occ, torch.full_like(env, -1), cls, base, tgt, pos)
+    apart = ~torch.isin((tgt - pos).abs(), torch.tensor([0, 1, W + 1]))
+    for kernel in QUERIES:
+        for iters in (1, 32, 200):
+            d, nd = _check_query(kernel, cut, H, W, iters, cuda)
+            assert (d[apart] == bfs_pallas.INF).all() and (nd[apart] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [0, 1, 40])
+@pytest.mark.parametrize("H,W", [(9, 8), (25, 22)])
+def test_queries_on_every_target(cuda, H, W, iters):
+    """Each query against its own plain version for every walled target in
+    [-3(W+1), L + 3(W+1)) of its padded row L, and -1, INT32_MIN,
+    INT32_MAX: in the grid, in the margin row below it, in the padding whose
+    neighbours wrap to row 0, and far out."""
+    Ws = W + 1
+    for kernel, L in (("K1", 32 * bfs_bitpack._plan(H, W)[2]),
+                      ("K2", bfs_pallas.query_length(H, W))):
+        ts = torch.cat([torch.arange(-3 * Ws, L + 3 * Ws), torch.tensor([-1, -2**31, 2**31 - 1])])
+        occ, env, cls, base, _, pos = _random_envs(H, W, 16, ts.shape[0], seed=L + iters)
+        _check_query(kernel, (occ, env, cls, base, ts.int(), pos), H, W, iters, cuda)
+
+
+@pytest.mark.cuda
+def test_replan_query_launches_without_a_host_sync_or_a_mask(cuda, monkeypatch):
+    """The compacted replan query on the card: the kernel builds the rows,
+    so `_passable_rows` is never called, and nothing waits for the device."""
+    H, W, B, A = 25, 22, 64, 28
+    occ, env, cls, base, tgt, pos = _to(_random_envs(H, W, B, B * A, seed=5), cuda)
+    calls = []
+    monkeypatch.setattr(bfs_pallas, "_passable_rows", lambda *a: calls.append(a))
+    need = torch.rand(B, A, device=cuda) < 0.3
+    torch.cuda.synchronize()
+    for kernel, query in (("K1", bfs_bitpack.bitpack_query_call), ("K2", bfs_pallas.query_call)):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            d, nd, overflow = bfs_pallas.bfs_query_occ_batched(
+                occ, tgt.view(B, A), pos.view(B, A), cls[:A], need, base, H, W, 32,
+                row_frac=0.5, rows_per_block=128, query=query)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert d.shape == nd.shape == (B, A) and int(overflow.sum()) == 0, kernel
+    assert calls == []
 
 
 @pytest.mark.cuda
@@ -135,18 +246,16 @@ def test_bfs_dist_impassable_and_out_of_range_targets(cuda, iters):
 
 @pytest.mark.cuda
 def test_queries_on_margin_row_targets(cuda):
-    """K1 and K2 against the plain query for targets in the margin row below
-    the grid, which reach the grid's last row."""
+    """K1 and K2 against their plain versions for targets in the margin row
+    below the grid, which reach the grid's last row (and, for K1 where
+    t + W+1 passes its 32*words bits, row 0 across the wrap)."""
     H, W = 25, 22
     Ws, n = W + 1, 25 * 23
-    pas, _, pos = _random_rows(H, W, 2 * Ws * 8, seed=11)
-    tgt = (n + torch.arange(pas.shape[0]) % Ws).int()
-    ref = bfs_pallas.query_plain(pas, tgt, pos, H, W, 40)
-    assert (ref[0] < bfs_pallas.INF).any()
-    gpu = tuple(t.to(cuda) for t in (pas, tgt, pos))
-    for call in (bfs_bitpack.bitpack_query_call, bfs_pallas.query_call):
-        d, nd = call(*gpu, H, W, 40)
-        assert torch.equal(d.cpu(), ref[0]) and torch.equal(nd.cpu(), ref[1])
+    occ, env, cls, base, _, pos = _random_envs(H, W, 16, 2 * Ws * 8, seed=11)
+    tgt = (n + torch.arange(env.shape[0]) % Ws).int()
+    for kernel in QUERIES:
+        d, _ = _check_query(kernel, (occ, env, cls, base, tgt, pos), H, W, 40, cuda)
+        assert (d < bfs_pallas.INF).any()
 
 
 @pytest.mark.cuda
