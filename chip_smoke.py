@@ -61,7 +61,20 @@ Phases, one line of output each (any failure exits non-zero):
      (torch.sparse.mm of the CSR adjacency, index_add_ over the valid rows),
      the bound and the roofline share. The sparse mean against the dense
      one on the card, and the card against the CPU on 8 windows;
-  9. 30 medium episodes of 500 steps: mean deliveries within 10% of the
+  9. GDE training at the flagship's recipe (windows of 5 x 28 x 435,
+     hidden 64, euler, horizon 4 with weights (3, 1, 1, 1), batch 32,
+     AdamW, clip 1.0) on 8 medium episodes of 100 steps that the port's
+     rollout records: one step (loss, every gradient, the parameters after
+     AdamW) card against CPU at horizon 1 and 4; one step with host
+     synchronisation forbidden; train_gde for 2 epochs on the card (uint8
+     storage, checkpoints), the loss falling and no K4 launch in training;
+     a resume restoring parameters and optimizer state bit for bit; the
+     best weights served through K4 at B = 512 (counts zeroed before and
+     read after: 12 launches) against the structured path on the card
+     within 1e-4 of the largest prediction; train ms per step and windows/s
+     at B = 32 and 512 (best of 3 after a warm-up), peak memory, device
+     events and busy share per step from torch.profiler traces;
+ 10. 30 medium episodes of 500 steps: mean deliveries within 10% of the
      JAX package's 85.13.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -94,6 +107,20 @@ MEDIUM = "tarware-medium-19agvs-9pickers-partialobs-v1"
 BATCH, STEPS = 2048, 200
 # GDE serving: the flagship's shape (results_data/gde_medium_h4w.stablehlo.json).
 GDE_BATCH, GDE_STEPS, WINDOW, HORIZON, HIDDEN = 512, 50, 5, 4, 64
+# GDE training: the flagship's recipe (horizon 4, weights (3, 1, 1, 1)) on
+# episodes the port's rollout records.
+TRAIN_ENVS, TRAIN_STEPS, TRAIN_WEIGHTS = 8, 100, (3.0, 1.0, 1.0, 1.0)
+# Card against CPU for one training step, TF32 off: the loss within 1e-5 of
+# itself and each gradient within 1e-5 of its largest element (float32 sums
+# over 32 x 140 nodes in other orders; the port's float criterion against
+# JAX); AdamW from the same gradients within 1e-6 (elementwise float32
+# arithmetic on parameters of magnitude < 1).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_OPT_ATOL = 1e-5, 1e-5, 1e-6
+# The solver's backward on the card: checkpoint=True recomputes the same
+# steps, so its gradients equal the stored ones up to float32 rounding
+# (1e-6 of the largest); the adjoint integrates the augmented system back
+# with the same rk4, within the JAX adjoint test's 1e-4.
+SOLVER_CKPT_RTOL, SOLVER_ADJ_RTOL = 1e-6, 1e-4
 # Float32 rounding bound of a sum of up to 32 terms in any order, relative to
 # the sum of the terms' magnitudes: 32 * 2**-23. Atomics (K4) and matrix
 # products sum in other orders than the plain versions.
@@ -208,34 +235,44 @@ def trace_ms(fn, reps: int, kernel=None) -> float:
     With `kernel`: the mean duration of the launches whose name holds it
     (one a call), the kernel's own time; a trace that lost launches adds
     those it holds, and traces are taken until reps launches are held.
-    Without: the device's busy time per call (every kernel and copy of
-    fn(), without the gaps between them), from a trace holding the most
-    device events seen, once two traces agree on that count (a lossy trace
-    would read short). No host pacing reaches either. Fails after
-    TRACE_TRIES traces."""
+    Without: the device's busy time per call (`busy_per_call`). No host
+    pacing reaches either. Fails after TRACE_TRIES traces."""
+    if kernel is None:
+        return busy_per_call(fn, reps)[1]
     import torch
 
     fn()
     torch.cuda.synchronize()
-    us, seen = [], []
+    us = []
     for attempt in range(1, TRACE_TRIES + 1):
+        got = [e.time_range.elapsed_us() for e in _traced(fn, reps) if kernel in e.name]
+        us += got
+        if len(us) >= reps:
+            return sum(us) / 1e3 / len(us)
+        if attempt < TRACE_TRIES:
+            say("timing", f"a trace of {reps} calls held {len(got)} launches of {kernel}; "
+                f"{len(us)} held in all, tracing again")
+    fail("timing", f"{TRACE_TRIES} traces of {reps} calls held {len(us)} launches of {kernel}")
+
+
+def busy_per_call(fn, reps: int):
+    """(device events, device busy ms) per call of fn(): every kernel and
+    copy of fn() in a torch.profiler trace of reps calls after a warm-up,
+    without the gaps between them, from a trace holding the most device
+    events seen, once two traces agree on that count (a lossy trace would
+    read short). Fails after TRACE_TRIES traces."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(TRACE_TRIES):
         dev = _traced(fn, reps)
-        if kernel is not None:
-            got = [e.time_range.elapsed_us() for e in dev if kernel in e.name]
-            us += got
-            if len(us) >= reps:
-                return sum(us) / 1e3 / len(us)
-            if attempt < TRACE_TRIES:
-                say("timing", f"a trace of {reps} calls held {len(got)} launches of {kernel}; "
-                    f"{len(us)} held in all, tracing again")
-        else:
-            seen.append((len(dev), sum(e.time_range.elapsed_us() for e in dev)))
-            most = max(n for n, _ in seen)
-            agree = [busy for n, busy in seen if n == most]
-            if most and len(agree) >= 2:
-                return agree[0] / 1e3 / reps
-    if kernel is not None:
-        fail("timing", f"{TRACE_TRIES} traces of {reps} calls held {len(us)} launches of {kernel}")
+        seen.append((len(dev), sum(e.time_range.elapsed_us() for e in dev)))
+        most = max(n for n, _ in seen)
+        agree = [busy for n, busy in seen if n == most]
+        if most and len(agree) >= 2:
+            return most / reps, agree[0] / 1e3 / reps
     fail("timing", f"no two of {TRACE_TRIES} traces held the same, largest count of device "
          f"events (events per trace: {[n for n, _ in seen]})")
 
@@ -1074,6 +1111,311 @@ def phase_gde(layout_cache, smi):
     return launches, k4
 
 
+def record_episodes(pp, lay, B: int, T: int, seed: int):
+    """(B, T, A, D) float32 observations of B medium episodes of T steps:
+    the port's heuristic rollout, `observe` before each step."""
+    import torch
+
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.observations import observe
+    from swarm_ode_tpu_torch.policies.heuristic import init_state, make_policy
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    policy = make_policy(pp, lay)
+    es, h = step_mod.reset(pp, B, gen), init_state(pp, B)
+    frames = []
+    for _ in range(T):
+        frames.append(observe(pp, es))
+        actions, h = policy(pp, es, h)
+        es, _, _, _ = step_mod.step(pp, es, actions, generator=gen)
+    return torch.stack(frames, dim=1).cpu().numpy()
+
+
+def _max_rel(got, ref) -> float:
+    """max |got - ref| over the largest |ref| (1 where ref is all zeros)."""
+    scale = float(ref.abs().max()) or 1.0
+    return float((got.cpu() - ref.cpu()).abs().max()) / scale
+
+
+def step_card_vs_cpu(ds, model_cpu, pairs, horizon, weights, cfg):
+    """One training step on the card and on the CPU from the same
+    parameters and the same 32 windows: (loss rel. error, worst gradient
+    rel. error, worst parameter error beyond what the gradients' difference
+    explains, worst parameter error of the card's optimizer from the CPU's
+    gradients)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from swarm_ode_tpu_torch.train import train_gde as tg
+
+    pos = np.stack(ds._positions)
+    if horizon > 1:
+        pos = np.pad(pos, ((0, 0), (0, horizon), (0, 0), (0, 0)), mode="edge")
+    T = ds.episodes[0].shape[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(model_cpu).to(dev)
+        data = {"episodes": torch.from_numpy(np.stack(ds.episodes)).to(dev),
+                "positions": torch.from_numpy(pos).to(dev)}
+        batch = tg.window_batch(data, pairs.to(dev), ds.seq_len, horizon, T)
+        params = list(model.parameters())
+        loss = tg._batch_loss(model, ds.num_agvs, 5.0, horizon, weights)(batch)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            clipped = tg.clip_by_global_norm(grads, cfg.grad_clip)
+            opt = tg.adamw_update(params, clipped, tg.adamw_init(params), cfg.lr,
+                                  cfg.weight_decay)
+        out[dev] = (loss.detach(), grads, clipped, [p.detach() for p in params], opt)
+    (lg, gg, cg, pg, og), (lc, gc, cc, pc, oc) = out["cuda"], out["cpu"]
+    loss_err = _max_rel(lg, lc)
+    grad_err = max(_max_rel(a, b) for a, b in zip(gg, gc))
+    # Adam's first update is lr * g / (|g| + eps) elementwise (decay aside):
+    # where the two gradients differ by d, the updates may differ by at most
+    # lr * min(2, d / (min |g| + eps)), plus float32 rounding.
+    excess = 0.0
+    for p_g, p_c, a, b, p0 in zip(pg, pc, cg, cc, model_cpu.parameters()):
+        a, b = a.cpu(), b.cpu()
+        d = (a - b).abs()
+        allow = cfg.lr * torch.clamp(d / (torch.minimum(a.abs(), b.abs()) + 1e-8), max=2.0)
+        allow = allow + 1e-6 * (1 + p0.detach().abs())
+        excess = max(excess, float(((p_g.cpu() - p_c).abs() - allow).max()))
+    # The card's optimizer from the CPU's clipped gradients: the same
+    # parameters within float32 rounding.
+    model = copy.deepcopy(model_cpu).cuda()
+    params = list(model.parameters())
+    with torch.no_grad():
+        tg.adamw_update(params, [c.cuda() for c in cc], tg.adamw_init(params), cfg.lr,
+                        cfg.weight_decay)
+    opt_err = max(float((a.detach().cpu() - b).abs().max()) for a, b in zip(params, pc))
+    return loss_err, grad_err, excess, opt_err, float(lc)
+
+
+def solver_backward_on_card(rows: int):
+    """The solver's backward on the card at the GDE's hidden width: for a
+    tanh(y W + b) field on (rows, HIDDEN) states, the gradients of the last
+    state's squared sum with checkpoint=True against checkpoint=False
+    (euler, rk4, dopri5), and odeint_adjoint against the direct gradients
+    (rk4, 32 substeps on [0, 1], the JAX package's adjoint case) and against
+    the adjoint on the CPU. Returns the worst error of each, relative to the
+    largest gradient."""
+    import numpy as np
+    import torch
+
+    from swarm_ode_tpu_torch.ops.odeint import odeint, odeint_adjoint
+
+    rng = np.random.RandomState(5)
+    y0_np = rng.normal(size=(rows, HIDDEN)).astype(np.float32)
+    w_np = (rng.normal(size=(HIDDEN, HIDDEN)) / np.sqrt(HIDDEN)).astype(np.float32)
+    b_np = (0.1 * rng.normal(size=HIDDEN)).astype(np.float32)
+
+    def field(t, y, p):
+        return torch.tanh(y @ p[0] + p[1])
+
+    def grads(dev, method, substeps, checkpoint=False, adjoint=False):
+        y0, w, b = (torch.from_numpy(a).to(dev).requires_grad_()
+                    for a in (y0_np, w_np, b_np))
+        t = torch.tensor([0.0, 1.0], device=dev)
+        if adjoint:
+            ys = odeint_adjoint(field, y0, t, (w, b), method=method, substeps=substeps)
+        else:
+            ys = odeint(lambda ti, y: field(ti, y, (w, b)), y0, t, method=method,
+                        substeps=substeps, checkpoint=checkpoint)
+        return torch.autograd.grad((ys[-1] ** 2).sum(), (y0, w, b))
+
+    def worst(got, ref):
+        return max(_max_rel(a, b) for a, b in zip(got, ref))
+
+    ckpt = max(worst(grads("cuda", m, 4, checkpoint=True), grads("cuda", m, 4))
+               for m in ("euler", "rk4", "dopri5"))
+    adj = grads("cuda", "rk4", 32, adjoint=True)
+    return ckpt, worst(adj, grads("cuda", "rk4", 32)), worst(adj, grads("cpu", "rk4", 32,
+                                                                         adjoint=True))
+
+
+def phase_train(layout_cache, smi):
+    """GDE training at the flagship's width on the card: medium episodes
+    from the port's rollout, one step against the CPU, a step with host
+    syncs forbidden, train_gde for 2 epochs with checkpoints, a bit-exact
+    resume, the trained weights served through K4, and train ms per step at
+    B = 32 and 512. Returns the K4 launches in train_gde and in the served
+    batch."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from swarm_ode_tpu_torch.data.dataset import TrajectoryDataset
+    from swarm_ode_tpu_torch.graphs.temporal import build_temporal_batch
+    from swarm_ode_tpu_torch.models.gde import GraphODE
+    from swarm_ode_tpu_torch.ops import segment_pallas
+    from swarm_ode_tpu_torch.serving import make_gde_fn
+    from swarm_ode_tpu_torch.train import train_gde as tg
+
+    _, lay, pp = layout_cache["medium"]
+    t0 = time.perf_counter()
+    obs = record_episodes(pp, lay, TRAIN_ENVS, TRAIN_STEPS, seed=11)
+    ds = TrajectoryDataset(episodes=list(obs), num_agvs=pp.num_agvs,
+                           num_pickers=pp.num_pickers, seq_len=WINDOW)
+    D = ds.obs_dim
+    say("train", f"data: {TRAIN_ENVS} medium episodes x {TRAIN_STEPS} steps from the port's "
+        f"rollout, {ds.num_agents} agents x {D} features, {obs.nbytes / 1e6:.1f} MB float32, "
+        f"{len(ds)} windows, observations in [{obs.min():.0f}, {obs.max():.0f}]; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = tg.GDETrainConfig(horizon=HORIZON, horizon_weights=TRAIN_WEIGHTS)
+    model_cpu = GraphODE(D, pp.num_agvs, pp.num_pickers, HIDDEN, "euler")
+    model_cpu.init_(torch.Generator().manual_seed(0))
+    pairs = torch.from_numpy(np.asarray(ds._index, np.int32)[
+        np.random.RandomState(0).choice(len(ds), 32, replace=False)])
+    for horizon, weights in ((1, None), (HORIZON, TRAIN_WEIGHTS)):
+        loss_err, grad_err, excess, opt_err, loss = step_card_vs_cpu(
+            ds, model_cpu, pairs, horizon, weights, cfg)
+        say("train", f"one step at B=32, horizon {horizon}, weights {weights}, card vs CPU "
+            f"(TF32 off): loss {loss:.4f}, rel. error {loss_err:.2e} (tolerance "
+            f"{TRAIN_LOSS_RTOL:.0e}); worst gradient error {grad_err:.2e} of its largest "
+            f"(tolerance {TRAIN_GRAD_RTOL:.0e}); parameters after AdamW beyond what the "
+            f"gradients explain: {excess:.2e} (tolerance 0); card's AdamW from the CPU's "
+            f"gradients: max abs error {opt_err:.2e} (tolerance {TRAIN_OPT_ATOL:.0e})")
+        if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL and excess <= 0
+                and opt_err <= TRAIN_OPT_ATOL):
+            fail("train", f"card and CPU steps differ beyond the tolerances (horizon {horizon})")
+
+    rows = 32 * ds.num_agents
+    ckpt_err, adj_err, adj_cpu_err = solver_backward_on_card(rows)
+    say("train", f"solver backward on the card, ({rows}, {HIDDEN}) states: checkpoint=True vs "
+        f"False (euler, rk4, dopri5) worst gradient error {ckpt_err:.2e} of its largest "
+        f"(tolerance {SOLVER_CKPT_RTOL:.0e}); odeint_adjoint vs direct (rk4, 32 substeps) "
+        f"{adj_err:.2e} (tolerance {SOLVER_ADJ_RTOL:.0e}); adjoint card vs CPU "
+        f"{adj_cpu_err:.2e} (tolerance {TRAIN_GRAD_RTOL:.0e})")
+    if not (ckpt_err <= SOLVER_CKPT_RTOL and adj_err <= SOLVER_ADJ_RTOL
+            and adj_cpu_err <= TRAIN_GRAD_RTOL):
+        fail("train", "the solver's backward on the card is beyond its tolerances")
+
+    # One step (gather, loss, backward, clip, AdamW) with host syncs
+    # forbidden; the data and the index pairs are uploaded before.
+    u8, _ = tg.stack_episodes_streamed(ds.episodes, "uint8")
+    pos = np.pad(np.stack(ds._positions), ((0, 0), (0, HORIZON), (0, 0), (0, 0)), mode="edge")
+    data = {"episodes": torch.from_numpy(u8).cuda(), "positions": torch.from_numpy(pos).cuda()}
+    model = copy.deepcopy(model_cpu).cuda()
+    params = list(model.parameters())
+    loss_fn = tg._batch_loss(model, ds.num_agvs, 5.0, HORIZON, TRAIN_WEIGHTS)
+    rng = np.random.RandomState(1)
+    index = np.asarray(ds._index, np.int32)
+    opt = tg.adamw_init(params)
+
+    def steps(pairs_dev):
+        nonlocal opt
+        for p in pairs_dev:
+            opt, loss = tg.train_step(params, opt, loss_fn,
+                                      tg.window_batch(data, p, WINDOW, HORIZON, TRAIN_STEPS), cfg)
+        return loss
+
+    dev_pairs = torch.from_numpy(index[rng.choice(len(ds), (2, 32))]).cuda()
+    steps(dev_pairs[:1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps(dev_pairs[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    say("train", "one training step (window gather, graphs, loss, backward, clip, AdamW) "
+        "on the card with host synchronisation forbidden: passed")
+
+    # train_gde on the card: 2 epochs, uint8 storage, checkpoints; no kernel
+    # of K1-K4 in the training step (it aggregates structurally).
+    with tempfile.TemporaryDirectory() as ckdir:
+        run_cfg = dataclasses.replace(cfg, num_epochs=2, device_dtype="uint8",
+                                      checkpoint_dir=ckdir, checkpoint_every=1)
+        init = {k: v.cuda() for k, v in model_cpu.state_dict().items()}
+        segment_pallas.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = tg.train_gde(ds, run_cfg, verbose=False, device="cuda", init_params=init)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k4_in_training = segment_pallas.LAUNCHES
+        hist = out["history"]
+        say("train", f"train_gde, 2 epochs on the card (uint8 storage, batch 32, horizon "
+            f"{HORIZON}, weights {TRAIN_WEIGHTS}): train loss {hist['train_loss']}, val loss "
+            f"{hist['val_loss']}; {dt:.1f} s on {smi}; K4 launches in training {k4_in_training}")
+        if not hist["train_loss"][1] < hist["train_loss"][0]:
+            fail("train", "the training loss did not fall")
+        if k4_in_training:
+            fail("train", f"the training step launched K4 {k4_in_training} times")
+        again = tg.train_gde(ds, run_cfg, verbose=False, device="cuda")
+    same_params = all(torch.equal(v, out["final_params"][k]) for k, v in again["final_params"].items())
+    a, b = again["opt_state"], out["opt_state"]
+    same_opt = (torch.equal(a.count, b.count)
+                and all(torch.equal(x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu)))
+    say("train", f"resume from the last checkpoint (nothing left to train): parameters "
+        f"bit-identical {same_params}, optimizer state (count {int(a.count)}, mu, nu) "
+        f"bit-identical {same_opt}")
+    if not (same_params and same_opt and again["history"]["train_loss"] == []):
+        fail("train", "the resume did not restore the saved state bit for bit")
+
+    # The trained (best) weights served through K4 at B = 512, against the
+    # structured path on the card.
+    serve_model = GraphODE(D, pp.num_agvs, pp.num_pickers, HIDDEN, "euler").cuda()
+    predict = make_gde_fn(serve_model, out["params"], 5.0, HORIZON)
+    sel = torch.from_numpy(index[np.random.RandomState(2).choice(len(ds), GDE_BATCH)]).cuda()
+    wobs, wcount, _, _ = tg._extract_windows(data["episodes"], data["positions"], WINDOW,
+                                             sel[:, 0], sel[:, 1], horizon=HORIZON,
+                                             true_len=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    segment_pallas.LAUNCHES = 0
+    pred = predict(wobs, wcount)
+    torch.cuda.synchronize()
+    k4 = segment_pallas.LAUNCHES
+    with torch.no_grad():
+        g = build_temporal_batch(wobs, wcount, pp.num_agvs, 5.0)
+        t_span = torch.arange(HORIZON + 1, dtype=torch.float32, device="cuda")
+        traj = serve_model.apply_batched(g, t_span)["trajectories"]
+        ref = traj[:, torch.arange(GDE_BATCH, device="cuda"),
+                   (wcount.long() - 1).clamp(min=0)].transpose(0, 1)
+    err = float((pred - ref).abs().max())
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    say("train", f"trained weights served at B={GDE_BATCH} through K4 ({k4} launches) vs the "
+        f"structured path on the card: max abs err {err:.3e} (tolerance {tol:.2e}), "
+        f"predictions {tuple(pred.shape)}, finite {bool(torch.isfinite(pred).all())}")
+    if k4 != HORIZON * 3 or not err <= tol or not bool(torch.isfinite(pred).all()):
+        fail("train", f"serving the trained weights: {k4} K4 launches (expected "
+             f"{HORIZON * 3}), error {err:.3e}")
+
+    # Train ms per step at the flagship's shape.
+    for B in (32, GDE_BATCH):
+        reps = 10
+        tp = torch.from_numpy(index[rng.choice(len(ds), (reps, B))]).cuda()
+        steps(tp)
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            steps(tp)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        steps(tp[:1])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        events, busy = busy_per_call(lambda: steps(tp[:1]), reps)
+        by_name = {}
+        for e in _traced(lambda: steps(tp[:1]), reps):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        ms = 1e3 * min(runs) / reps
+        say("train", f"B={B}, windows of {WINDOW}x{ds.num_agents}x{D}, hidden {HIDDEN}, euler, "
+            f"horizon {HORIZON}: train ms per step {ms:.3f} (best of 3 x {reps} steps; runs "
+            + ", ".join(f"{1e3 * r / reps:.3f}" for r in runs)
+            + f"), windows/s {B / ms * 1e3:.1f}, peak {peak:.2f} GiB, device events per step "
+            f"{events:.1f}, device busy {busy:.3f} ms per step (busy share {busy / ms:.3f}); "
+            f"on {smi}")
+        say("train", f"B={B}, device ms per step of the largest kernels in one trace, on "
+            f"{smi}: " + "; ".join(f"{name[:70]} {v:.3f}" for name, v in top))
+    return k4_in_training, k4
+
+
 def phase_distribution(layout_cache):
     import torch
 
@@ -1112,6 +1454,7 @@ def main() -> None:
     by_setting = phase_main_path(layouts)
     k3_launches = phase_full_field(layouts)
     k4_launches, k4 = phase_gde(layouts, smi)
+    k4_training, k4_trained = phase_train(layouts, smi)
     phase_distribution(layouts)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
@@ -1148,7 +1491,12 @@ def main() -> None:
         {"name": "segment_sum (K4)", "route": "cuda",
          "source": "swarm_ode_tpu_torch/csrc/segment_sum.cu",
          "replaces": "swarm_ode_tpu/ops/segment_pallas.py:25", "launches": k4_launches,
-         "path": "GDE serving", "max_abs_err": max(planned["max_abs_err"], narrow["max_abs_err"]),
+         "path": "GDE serving",
+         # The training slice's path, counted in two runs: train_gde (none:
+         # it aggregates structurally), then one served batch of its weights.
+         "launches_by_path": {"GDE serving": k4_launches, "GDE training": k4_training,
+                              "trained weights served": k4_trained},
+         "max_abs_err": max(planned["max_abs_err"], narrow["max_abs_err"]),
          "ms": planned["ms"], "trace_ms": planned["trace_ms"], "plain_ms": planned["plain_ms"],
          "bound_ms": planned["bound_ms"],
          "bound_by": planned["bound_by"], "library_ms": planned["library_ms"],

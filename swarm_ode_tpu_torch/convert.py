@@ -7,18 +7,21 @@ JAX. Batched JAX states (a vmapped reset or scan) carry the leading batch
 dimension the port expects. The JAX state's PRNG `key` has no counterpart
 and is ignored. The GDE's flax parameter tree converts to a state dict of
 `models/gde.GraphODE` and back (`gde_params_from_numpy`,
-`gde_params_to_numpy`).
+`gde_params_to_numpy`), and the trainer's optimizer state to and from
+optax's (clip_by_global_norm, adamw) chain state as numpy
+(`adamw_state_from_numpy`, `adamw_state_to_numpy`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from swarm_ode_tpu_torch.env.state import EnvParams, EnvState
 from swarm_ode_tpu_torch.policies.heuristic import HeuristicState
+from swarm_ode_tpu_torch.utils.optim import AdamWState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -126,3 +129,25 @@ def gde_params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> dict:
         a = v.detach().cpu().numpy()
         node["kernel" if leaf == "weight" else "bias"] = a.T.copy() if leaf == "weight" else a
     return tree
+
+
+def adamw_state_from_numpy(opt_state, names: Sequence[str], device="cuda") -> AdamWState:
+    """The trainer's AdamWState from optax's chain(clip_by_global_norm,
+    adamw) state as numpy: (EmptyState(), (ScaleByAdamState(count, mu, nu),
+    EmptyState(), EmptyState())), mu and nu flax-shaped trees like the
+    parameters. `names`: the model's parameter names in its parameter order
+    (`[n for n, _ in model.named_parameters()]`)."""
+    _, (adam, *_) = opt_state
+    count, mu, nu = adam
+    mu, nu = gde_params_from_numpy(mu, device), gde_params_from_numpy(nu, device)
+    return AdamWState(_tensor(np.asarray(count, np.int32), device), [mu[n] for n in names],
+                      [nu[n] for n in names])
+
+
+def adamw_state_to_numpy(state: AdamWState, names: Sequence[str]):
+    """The inverse of adamw_state_from_numpy: ((), ((count, mu, nu), (), ())),
+    optax's chain state with each EmptyState as (), so its leaves come in
+    optax's order."""
+    mu = gde_params_to_numpy(dict(zip(names, state.mu)))
+    nu = gde_params_to_numpy(dict(zip(names, state.nu)))
+    return ((), ((state.count.detach().cpu().numpy(), mu, nu), (), ()))

@@ -1,18 +1,20 @@
 """Graph Neural ODE for trajectory prediction (reference train_gde.py:20-106).
 
-Counterpart of `swarm_ode_tpu/models/gde.py`, forward only. `GraphODEFunc`
+Counterpart of `swarm_ode_tpu/models/gde.py`. `GraphODEFunc`
 (three SAGE layers) and the position decoder are `nn.Module`s whose
 parameter names follow the flax tree (`func.conv1.DenseSAGEConv_0.lin_l`,
 `decoder.position_decoder`, ...), so `convert.gde_params_from_numpy` carries
 trained flax parameters over as a list of transposes.
 
-`GraphODE` keeps the JAX model's interface: `apply` on dense graphs,
-`apply_batched` on the structured batch, and `predict_trajectory`. Unlike
-the JAX class it holds its own parameters, and its `apply` is the forward
-pass (it shadows `nn.Module.apply(fn)`).
+`GraphODE` keeps the JAX model's interface: `apply` on dense graphs (it
+shadows `nn.Module.apply(fn)`), `apply_batched` on the structured batch
+(differentiable on the structured path, which training takes; calling the
+model runs it), and `predict_trajectory`. Unlike the JAX class it holds its
+own parameters, which `init_` draws as flax initialises them.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -66,6 +68,22 @@ class GraphODE(nn.Module):
         self.func = GraphODEFunc(node_dim, hidden_dim)
         self.decoder = _Decoder(node_dim)
 
+    def init_(self, generator: torch.Generator) -> "GraphODE":
+        """Draws every parameter as flax's `Dense` initialises it: the kernel
+        from `lecun_normal` (a normal truncated to two standard deviations,
+        std sqrt(1/fan_in) / 0.87962566 so that the truncated draw has std
+        sqrt(1/fan_in)), the bias zeros. The draws come from `generator`,
+        which lies on the parameters' device. Returns the model."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+                    nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                          generator=generator)
+                    if m.bias is not None:
+                        m.bias.zero_()
+        return self
+
     def _solve(self, f, x, time_span, method):
         return odeint(f, x, time_span, method=method or self.ode_solver,
                       rtol=self.rtol, atol=self.atol)
@@ -112,6 +130,12 @@ class GraphODE(nn.Module):
 
         sol = self._solve(f, graph.x, time_span, method)
         return {"trajectories": self.decoder(sol), "node_features": sol}
+
+    def forward(self, graph: BatchedTemporalGraph, time_span, method: Optional[str] = None,
+                edges=None) -> Dict[str, torch.Tensor]:
+        """Calling the model is `apply_batched` (so torch.func.functional_call
+        runs it with other parameters)."""
+        return self.apply_batched(graph, time_span, method, edges)
 
     def predict_trajectory(self, graph: TemporalGraph, num_steps: int) -> torch.Tensor:
         t = torch.arange(0, num_steps + 1, dtype=torch.float32, device=graph.x.device)

@@ -1,7 +1,7 @@
-"""ODE integration, forward only (replaces torchdiffeq.odeint, reference
+"""ODE integration and its gradients (replaces torchdiffeq.odeint, reference
 train_gde.py:78-85 and run_gnode.py:134-135).
 
-Counterpart of `swarm_ode_tpu/ops/odeint.py::odeint`, on one tensor state:
+Counterpart of `swarm_ode_tpu/ops/odeint.py`, on one tensor state:
   * fixed-step euler / midpoint / rk4: one step per consecutive pair of
     requested times, `substeps` substeps each (torchdiffeq's fixed-grid
     semantics, so t = [0, 1] with euler is one Euler step, the reference
@@ -10,15 +10,20 @@ Counterpart of `swarm_ode_tpu/ops/odeint.py::odeint`, on one tensor state:
     norm and controller, run as a bounded loop of `max_steps` masked
     iterations per interval. Nothing in the loop reads a value back to the
     host, so a GPU run never waits on it; iterations after the interval's
-    end are no-ops.
-Times and step sizes are float32 tensors, as in the JAX package. The
-adjoint (`odeint_adjoint`) and checkpointing come with training.
+    end are no-ops. Step-size control is a schedule that gradients do not
+    flow through: the initial step and the error norm are detached, as the
+    JAX package stops their gradients.
+Gradients flow through the solver by autograd (`checkpoint=True`
+recomputes each step or interval in the backward pass, as `jax.checkpoint`
+does), or, with `odeint_adjoint`, by the continuous adjoint method.
+Times and step sizes are float32 tensors, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint as _recompute
 
 
 def _euler_step(func, t0, dt, y0):
@@ -115,7 +120,7 @@ def _dopri5_interval(func, y0, t0, t1, dt0, rtol, atol, max_steps):
     for _ in range(max_steps):
         h = torch.minimum(dt, t1 - t)
         y1, err = _dopri5_step(func, t, h, y)
-        en = _error_norm(err, y, y1, rtol, atol)
+        en = _error_norm(err, y, y1, rtol, atol).detach()
         # A non-finite error estimate rejects the step and shrinks dt.
         en = torch.where(torch.isfinite(en), en, torch.inf)
         accept = en <= 1.0
@@ -135,10 +140,12 @@ def _dopri5_interval(func, y0, t0, t1, dt0, rtol, atol, max_steps):
 
 def odeint(func: Callable, y0: torch.Tensor, t: torch.Tensor, *, method: str = "dopri5",
            rtol: float = 1e-3, atol: float = 1e-4, substeps: int = 1,
-           max_steps: int = 64) -> torch.Tensor:
+           max_steps: int = 64, checkpoint: bool = False) -> torch.Tensor:
     """Integrate dy/dt = func(t, y) at the times `t` (t[0] is the initial
     time). y0: a float tensor of any shape; t: (T,) increasing times.
-    Returns (T, *y0.shape), y0 first."""
+    Returns (T, *y0.shape), y0 first. `checkpoint`: keep no intermediate of
+    a fixed step or a dopri5 interval for the backward pass, recompute it
+    there (the gradients are the same)."""
     t = torch.as_tensor(t, dtype=y0.dtype, device=y0.device)
     ys = [y0]
     y = y0
@@ -148,13 +155,79 @@ def odeint(func: Callable, y0: torch.Tensor, t: torch.Tensor, *, method: str = "
             t0, t1 = t[k], t[k + 1]
             dt = (t1 - t0) / substeps
             for i in range(substeps):
-                y = stepper(func, t0 + i * dt, dt, y)
+                if checkpoint:
+                    y = _recompute(stepper, func, t0 + i * dt, dt, y, use_reentrant=False)
+                else:
+                    y = stepper(func, t0 + i * dt, dt, y)
             ys.append(y)
     elif method == "dopri5":
-        dt = _initial_step(func, t[0], y0, rtol, atol)
+        dt = _initial_step(func, t[0], y0, rtol, atol).detach()
         for k in range(t.shape[0] - 1):
-            y, dt = _dopri5_interval(func, y, t[k], t[k + 1], dt, rtol, atol, max_steps)
+            args = (func, y, t[k], t[k + 1], dt, rtol, atol, max_steps)
+            if checkpoint:
+                y, dt = _recompute(_dopri5_interval, *args, use_reentrant=False)
+            else:
+                y, dt = _dopri5_interval(*args)
             ys.append(y)
     else:
         raise ValueError(f"Unknown method {method!r}")
     return torch.stack(ys)
+
+
+class _Adjoint(torch.autograd.Function):
+    """odeint of func(t, y, params) whose backward pass integrates the
+    augmented system (y, a, grad_params), flattened into one state as the
+    JAX package ravels its pytree, from t[i] back to t[i-1] with the same
+    solver, segment by segment, adding the output's cotangent at each
+    requested time to the adjoint a (`backseg` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, func, t, kw, y0, *params):
+        ys = odeint(lambda ti, y: func(ti, y, params), y0, t, **kw)
+        ctx.func, ctx.kw = func, kw
+        ctx.save_for_backward(t, ys, *params)
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        t, ys, *params = ctx.saved_tensors
+        func = ctx.func
+        ny, sizes = ys[0].numel(), [p.numel() for p in params]
+
+        def aug_dyn(ti, aug):
+            with torch.enable_grad():
+                y = aug[:ny].view_as(ys[0]).detach().requires_grad_()
+                ps = tuple(p.detach().requires_grad_() for p in params)
+                dy = func(ti, y, ps)
+                vjp = torch.autograd.grad(dy, (y, *ps), aug[ny:2 * ny].view_as(dy),
+                                          allow_unused=True)
+            a_dot, *p_dot = (torch.zeros_like(x) if d is None else d for d, x in zip(vjp, (y, *ps)))
+            return torch.cat([dy.detach().reshape(-1), -a_dot.reshape(-1),
+                              *(-d.reshape(-1) for d in p_dot)])
+
+        def neg_dyn(ti, aug):
+            return -aug_dyn(-ti, aug)
+
+        a = torch.zeros(ny, dtype=ys.dtype, device=ys.device)
+        gp = torch.zeros(sum(sizes), dtype=ys.dtype, device=ys.device)
+        for i in range(t.shape[0] - 1, 0, -1):
+            a = a + g[i].reshape(-1)
+            aug0 = torch.cat([ys[i].reshape(-1), a, torch.zeros_like(gp)])
+            out = odeint(neg_dyn, aug0, torch.stack([-t[i], -t[i - 1]]), **ctx.kw)[-1]
+            a, gp = out[ny:2 * ny], gp + out[2 * ny:]
+        a = a + g[0].reshape(-1)
+        grads = [d.view_as(p) for d, p in zip(gp.split(sizes), params)]
+        return (None, None, None, a.view_as(ys[0]), *grads)
+
+
+def odeint_adjoint(func: Callable, y0: torch.Tensor, t: torch.Tensor,
+                   params: Sequence[torch.Tensor], *, method: str = "dopri5", rtol: float = 1e-3,
+                   atol: float = 1e-4, substeps: int = 1, max_steps: int = 64) -> torch.Tensor:
+    """odeint with O(1)-memory gradients by the continuous adjoint method.
+    func(t, y, params) -> dy, `params` a flat tuple of tensors (the JAX
+    function's pytree); gradients flow to y0 and params, computed by
+    integrating the augmented system backwards in time with the same solver
+    instead of differentiating through the solver's steps."""
+    t = torch.as_tensor(t, dtype=y0.dtype, device=y0.device)
+    kw = dict(method=method, rtol=rtol, atol=atol, substeps=substeps, max_steps=max_steps)
+    return _Adjoint.apply(func, t, kw, y0, *params)

@@ -356,3 +356,91 @@ def test_planned_wrapper_rejects_what_k4_cannot_take(cuda):
         segment_pallas.segment_sum_planned(data, row, offsets.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         segment_pallas.segment_sum_planned(torch.ones(3, 8, device=cuda).t(), row, offsets)
+
+
+def _train_data(seed=0, E=4, T=40, N=6, D=24):
+    """E episodes of T steps of random integral observations (positions in
+    features 0-4), as GDE training data."""
+    from swarm_ode_tpu_torch.data.dataset import TrajectoryDataset
+
+    g = torch.Generator().manual_seed(seed)
+    eps = [torch.randint(0, 12, (T, N, D), generator=g).float().numpy() for _ in range(E)]
+    return TrajectoryDataset(episodes=eps, num_agvs=3, num_pickers=N - 3, seq_len=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon,weights", [(1, None), (4, (3.0, 1.0, 1.0, 1.0))])
+def test_train_step_matches_cpu(cuda, horizon, weights):
+    """One training step from the same parameters on the same 16 windows:
+    the loss within 1e-5 and each gradient within 1e-5 of its largest
+    element (float32 sums in other orders), card against CPU; AdamW on the
+    card from the CPU's clipped gradients within 1e-6 of the CPU's. The
+    step (window gather, loss, backward, clip, AdamW) runs with host
+    synchronisation forbidden."""
+    import copy
+
+    import numpy as np
+
+    from swarm_ode_tpu_torch.models.gde import GraphODE
+    from swarm_ode_tpu_torch.train import train_gde as tg
+
+    ds = _train_data()
+    pos = np.stack(ds._positions)
+    pos = np.pad(pos, ((0, 0), (0, horizon), (0, 0), (0, 0)), mode="edge")
+    pairs = torch.from_numpy(np.asarray(ds._index, np.int32)[::10][:16].copy())
+    cfg = tg.GDETrainConfig()
+    model = GraphODE(24, 3, 3, 16).init_(torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(model).to(dev)
+        params = list(m.parameters())
+        data = {"episodes": torch.from_numpy(np.stack(ds.episodes)).to(dev),
+                "positions": torch.from_numpy(pos).to(dev)}
+        loss_fn = tg._batch_loss(m, 3, 5.0, horizon, weights)
+        batch = tg.window_batch(data, pairs.to(dev), 5, horizon, 40)
+        loss = loss_fn(batch)
+        grads = torch.autograd.grad(loss, params)
+        clipped = tg.clip_by_global_norm(grads, cfg.grad_clip)
+        out[dev] = loss.detach(), [g.cpu() for g in grads], clipped
+        if dev != "cpu":
+            opt = tg.adamw_init(params)
+            dev_pairs = pairs.to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                opt, _ = tg.train_step(params, opt, loss_fn,
+                                       tg.window_batch(data, dev_pairs, 5, horizon, 40), cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert int(opt.count) == 1
+    (lc, gc, cc), (lg, gg, _) = out["cpu"], out[cuda]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    cpu_m, card_m = copy.deepcopy(model), copy.deepcopy(model).to(cuda)
+    cp, gp = list(cpu_m.parameters()), list(card_m.parameters())
+    with torch.no_grad():
+        tg.adamw_update(cp, cc, tg.adamw_init(cp), cfg.lr, cfg.weight_decay)
+        tg.adamw_update(gp, [c.to(cuda) for c in cc], tg.adamw_init(gp), cfg.lr, cfg.weight_decay)
+    for a, b in zip(gp, cp):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_train_gde_on_the_card(cuda, tmp_path):
+    """train_gde on the card (default device), resident uint8 data and
+    checkpoints: 2 epochs, finite falling loss; a resume with nothing left
+    to train gives back the final parameters bit for bit."""
+    import numpy as np
+
+    from swarm_ode_tpu_torch.train import train_gde as tg
+
+    ds = _train_data(T=60)
+    cfg = tg.GDETrainConfig(num_epochs=2, batch_size=16, hidden_dim=16, device_dtype="uint8",
+                            checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    out = tg.train_gde(ds, cfg, verbose=False)
+    hist = out["history"]["train_loss"]
+    assert next(out["model"].parameters()).device.type == "cuda"
+    assert all(np.isfinite(hist)) and hist[1] < hist[0]
+    again = tg.train_gde(ds, cfg, verbose=False)
+    assert all(torch.equal(v, out["final_params"][k]) for k, v in again["final_params"].items())

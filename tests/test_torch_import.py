@@ -37,7 +37,17 @@ SLICE_MODULES = (
     "swarm_ode_tpu_torch.ops.odeint",
     "swarm_ode_tpu_torch.models.gde",
     "swarm_ode_tpu_torch.serving",
+    "swarm_ode_tpu_torch.data.dataset",
+    "swarm_ode_tpu_torch.utils.logging",
+    "swarm_ode_tpu_torch.utils.checkpoint",
+    "swarm_ode_tpu_torch.utils.optim",
+    "swarm_ode_tpu_torch.train.train_gde",
+    "swarm_ode_tpu_torch.entry",
 )
+# Modules a fresh interpreter must not load when it imports the port: JAX,
+# the JAX package and its training stack, and h5py (needed only to decode
+# an HDF5 file, and absent where the port runs on the card).
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "swarm_ode_tpu")
 
 
 def test_port_imports_without_jax():
@@ -45,11 +55,31 @@ def test_port_imports_without_jax():
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'swarm_ode_tpu' or m.startswith('swarm_ode_tpu.'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "from swarm_ode_tpu_torch.ops import _build\n"
         "assert _build._library is None\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_convert_loads_no_trainer():
+    """The interop layer (convert) loads the optimizer's state type and not
+    the trainer above it, nor the dataset, checkpoint and logging modules
+    the trainer pulls in."""
+    code = (
+        "import sys\n"
+        "import swarm_ode_tpu_torch.convert\n"
+        "upper = ('train.', 'data.', 'utils.checkpoint', 'utils.logging')\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('swarm_ode_tpu_torch.')\n"
+        "             and m[len('swarm_ode_tpu_torch.'):].startswith(upper))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     res = subprocess.run(
@@ -79,7 +109,8 @@ def test_port_sources_never_name_jax():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
-                assert mod.split(".")[0] not in ("jax", "jaxlib", "flax", "swarm_ode_tpu"), (
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                                 "swarm_ode_tpu"), (
                     f"{path.relative_to(REPO)}: {s}"
                 )
 
@@ -114,6 +145,9 @@ def test_device_parameters_default_to_the_card():
         "swarm_ode_tpu_torch.convert.heuristic_state_from_numpy",
         "swarm_ode_tpu_torch.convert.env_params_from_numpy",
         "swarm_ode_tpu_torch.convert.gde_params_from_numpy",
+        "swarm_ode_tpu_torch.convert.adamw_state_from_numpy",
+        "swarm_ode_tpu_torch.train.train_gde.train_gde",
+        "swarm_ode_tpu_torch.entry.entry",
     }
     assert {k for k, v in found.items() if v == "cuda"} >= entry_points
 
