@@ -34,6 +34,10 @@ Phases, one line of output each (any failure exits non-zero):
      no spills;
   5. the card against the CPU: 50 steps of dispatcher + step at B = 64 with
      the same injected draws, every state field, reward and info identical;
+     from the same reset and draws, the stochastic expert (T = 1.0, its
+     dispatcher draws made on the CPU) with the stateless expert's actions
+     and the action masks at every state, and collect_batch's captured
+     arrays (observations as float16 bits): identical;
   6. the main path: medium, B = 2048, reset + 200 steps, once in each
      setting of bfs_kernel with the launch counts zeroed before and read
      after: the default (bitpack32) launches the bit-packed kernel once per
@@ -75,7 +79,23 @@ Phases, one line of output each (any failure exits non-zero):
      at B = 32 and 512 (best of 3 after a warm-up), peak memory, device
      events and busy share per step from torch.profiler traces;
  10. 30 medium episodes of 500 steps: mean deliveries within 10% of the
-     JAX package's 85.13.
+     JAX package's 85.13;
+ 11. expert datagen: collect_batch at medium, B = 128 episodes of 500 steps
+     in chunks of 100, up to the host arrays the HDF5 writer takes (the
+     writer needs h5py, which the card's host need not have), counts
+     zeroed before and read after: K1 500 times, overflow 0, mean
+     deliveries within 10% of 85.13; env steps/s
+     with capture, MB copied a chunk, and the device's busy share (busy time
+     a step in a traced chunk of 5 steps over the run's wall time a step);
+ 12. the env API: a 500-step medium episode through the gym adapter
+     (`make`, on the card by default) driven by the dispatcher, terminateds
+     at step 500 and not before; heuristic_episode on it; auto_reset_rollout
+     at B = 64 over 1,100 steps with host synchronisation forbidden (two
+     boundaries per env, cur_steps from the last one); checked_step over 100
+     steps at B = 64 beside the plain step: it raises exactly where the
+     invariant flags (the same on the card and the CPU) break, and only
+     the break JAX's own rollout makes (two agents of one layer on one
+     cell, neither fixing a clash) may occur; K1's launches on each path.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `bound_ms` is the least time the
@@ -146,6 +166,14 @@ K3_PREVIOUS_MS = 1.2552
 # JAX package, 30 medium episodes (results_data/parity_rejoin_r4.json,
 # parity_at_chosen): deliveries, clashes, stucks per episode.
 JAX_PARITY = {"deliveries": 85.13, "clashes": 189.23, "stucks": 16.63}
+# Expert datagen: B episodes of the config's 500 steps, copied to the host in
+# chunks of DATAGEN_CHUNK steps; the busy share from a traced chunk of
+# DATAGEN_TRACE_STEPS steps. The env API: the auto-reset rollout over 1,100
+# steps (two 500-step boundaries, JAX's test) and checked_step, at B = 64.
+DATAGEN_BATCH, DATAGEN_CHUNK, DATAGEN_TRACE_STEPS = 128, 100, 5
+ENV_API_BATCH, AUTO_RESET_STEPS, CHECKED_STEPS = 64, 1100, 100
+# The one invariant JAX's own medium rollout breaks (tests/test_torch_invariants.py).
+OVERLAP = "same-layer agents overlap without fixing-clash"
 
 
 def say(phase: str, msg: str) -> None:
@@ -645,14 +673,14 @@ def phase_card_vs_cpu(layout_cache):
         step_mod.StepNoise(None if n.break_r is None else n.break_r.cuda(), n.delivery_gumbel.cuda())
         for n in noise_cpu
     ]
-    k1 = bfs_bitpack.LAUNCHES
+    s_gpu = convert.env_state_to(s_cpu, "cuda")
+    bfs_bitpack.LAUNCHES = 0
     t0 = time.perf_counter()
-    gpu = heuristic_rollout(pp_gpu, lay, B, T, state=convert.env_state_to(s_cpu, "cuda"),
-                            noise=noise_gpu, record=True)
+    gpu = heuristic_rollout(pp_gpu, lay, B, T, state=s_gpu, noise=noise_gpu, record=True)
     torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
-    if bfs_bitpack.LAUNCHES - k1 != T:
-        fail("card-vs-cpu", f"K1 launched {bfs_bitpack.LAUNCHES - k1} times in {T} steps")
+    t_gpu, k1 = time.perf_counter() - t0, bfs_bitpack.LAUNCHES
+    if k1 != T:
+        fail("card-vs-cpu", f"K1 launched {k1} times in {T} steps")
     t0 = time.perf_counter()
     cpu = heuristic_rollout(pp_cpu, lay, B, T, state=s_cpu, noise=noise_cpu, record=True)
     t_cpu = time.perf_counter() - t0
@@ -669,6 +697,92 @@ def phase_card_vs_cpu(layout_cache):
         f"{int(cpu.replan_overflow.sum())}); card {t_gpu:.2f} s, CPU {t_cpu:.2f} s")
     if deliv == 0:
         fail("card-vs-cpu", "no deliveries: the comparison exercised too little")
+    return experts_card_vs_cpu(pp_gpu, pp_cpu, lay, s_cpu, noise_cpu, g)
+
+
+def expert_steps(pp, lay, state, noise, dispatch_noise):
+    """The stochastic expert (T = 1.0) driving B envs from `state` with the
+    given draws; at each step also the stateless expert's actions and the
+    action masks of the same state. Returns ([(actions, stateless actions,
+    masks, HeuristicState)] per step, final state)."""
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.observations import compute_valid_action_masks
+    from swarm_ode_tpu_torch.policies import heuristic as heur
+
+    stoch = heur.make_policy(pp, lay, temperature=1.0)
+    expert = heur.make_stateless_expert(pp, lay)
+    h = heur.init_state(pp, state.batch)
+    out = []
+    for n, dn in zip(noise, dispatch_noise):
+        a, h = stoch(pp, state, h, dn)
+        out.append((a, expert(pp, state), compute_valid_action_masks(pp, state), h))
+        state, *_ = step_mod.step(pp, state, a, noise=n)
+    return out, state
+
+
+def experts_card_vs_cpu(pp_gpu, pp_cpu, lay, s_cpu, noise_cpu, g):
+    """The experts and datagen, card against CPU from one reset with
+    the same draws (made on the CPU): every step's stochastic actions and
+    HeuristicState, stateless actions and masks, and collect_batch's
+    captured arrays (float16 compared as bits) identical. Returns K1's
+    launches in the stochastic expert's run on the card."""
+    import numpy as np
+    import torch
+
+    from swarm_ode_tpu_torch import convert
+    from swarm_ode_tpu_torch.data.collect import collect_batch
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.ops import bfs_bitpack
+    from swarm_ode_tpu_torch.policies import heuristic as heur
+
+    B, T = s_cpu.batch, len(noise_cpu)
+    dnoise_cpu = [heur.draw_dispatch_noise(pp_cpu, B, g) for _ in range(T)]
+    noise_gpu = [step_mod.StepNoise(None, n.delivery_gumbel.cuda()) for n in noise_cpu]
+    dnoise_gpu = [heur.DispatchNoise(d.assign.cuda(), d.goal.cuda(), d.ret.cuda())
+                  for d in dnoise_cpu]
+    s_gpu = convert.env_state_to(s_cpu, "cuda")
+    bfs_bitpack.LAUNCHES = 0
+    t0 = time.perf_counter()
+    gpu, gs = expert_steps(pp_gpu, lay, s_gpu, noise_gpu, dnoise_gpu)
+    torch.cuda.synchronize()
+    t_gpu, k1 = time.perf_counter() - t0, bfs_bitpack.LAUNCHES
+    t0 = time.perf_counter()
+    cpu, cs = expert_steps(pp_cpu, lay, s_cpu, noise_cpu, dnoise_cpu)
+    t_cpu = time.perf_counter() - t0
+    for t, (x, y) in enumerate(zip(gpu, cpu)):
+        for what, a, b in zip(("stochastic actions", "stateless actions", "masks"), x, y):
+            if not torch_equal(a, b):
+                fail("card-vs-cpu", f"{what} differ at step {t}")
+        if not _states_equal(x[3], y[3]):
+            fail("card-vs-cpu", f"the stochastic expert's HeuristicState differs at step {t}")
+    if not _states_equal(gs, cs):
+        fail("card-vs-cpu", "the stochastic expert's final states differ")
+    if k1 != T:
+        fail("card-vs-cpu", f"K1 launched {k1} times in the stochastic expert's {T} steps")
+    agree = float(np.mean([(a == f).float().mean().item() for a, f, _, _ in cpu]))
+    say("card-vs-cpu", f"B={B}, {T} steps of the stochastic expert (T = 1.0) with the "
+        f"stateless expert and the action masks at every state: identical on every step "
+        f"(stateless vs stochastic actions agree on {agree:.3f}); card {t_gpu:.2f} s, CPU "
+        f"{t_cpu:.2f} s")
+
+    chunk = 20
+    t0 = time.perf_counter()
+    got, gstats = collect_batch(pp_gpu, lay, B, T, chunk, state=s_gpu, noise=noise_gpu)
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _ = collect_batch(pp_cpu, lay, B, T, chunk, state=s_cpu, noise=noise_cpu)
+    t_cpu = time.perf_counter() - t0
+    for k in want:
+        a, b = got[k], want[k]
+        if a.dtype == np.float16:
+            a, b = a.view(np.uint16), b.view(np.uint16)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail("card-vs-cpu", f"collect_batch's {k} differs")
+    say("card-vs-cpu", f"collect_batch, B={B}, {T} steps in chunks of {chunk}: all "
+        f"{len(want)} captured keys identical (observations as float16 bits; "
+        f"{int(gstats['deliveries'].sum())} deliveries); card {t_gpu:.2f} s, CPU "
+        f"{t_cpu:.2f} s")
+    return k1
 
 
 def phase_main_path(layout_cache):
@@ -1437,6 +1551,198 @@ def phase_distribution(layout_cache):
         fail("distribution", f"mean deliveries {got['deliveries']:.2f} outside [{lo:.1f}, {hi:.1f}]")
 
 
+def phase_datagen(layout_cache, smi):
+    """Expert datagen on the card: `collect_batch` at medium, B = 128
+    episodes of 500 steps in chunks of 100 (the default K1 path), up to the
+    host arrays the HDF5 writer takes (the writer needs h5py, which the
+    card's host need not have).
+    Counts zeroed before and read after: K1 once a step. Returns
+    (K1 launches, the numbers printed)."""
+    import numpy as np
+    import torch
+
+    from swarm_ode_tpu_torch.data.collect import collect_batch
+    from swarm_ode_tpu_torch.env.observations import obs_lengths
+    from swarm_ode_tpu_torch.ops import bfs_bitpack
+
+    cfg, lay, pp = layout_cache["medium"]
+    B, T, chunk = DATAGEN_BATCH, cfg.max_steps, DATAGEN_CHUNK
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    torch.cuda.synchronize()
+    bfs_bitpack.LAUNCHES = 0
+    t0 = time.perf_counter()
+    traj, stats = collect_batch(pp, lay, B, T, chunk, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = bfs_bitpack.LAUNCHES
+    overflow = int(stats["replan_overflow"].sum())
+    mb_chunk = sum(v.nbytes for v in traj.values()) / 1e6 / (T // chunk)
+    got = {k: float(np.mean(stats[k])) for k in ("deliveries", "clashes", "stucks")}
+    shapes = {k: traj[k].shape for k in ("observations", "grid_collision_layers")}
+    if k1 != T:
+        fail("datagen", f"K1 launched {k1} times in {T} steps")
+    if overflow:
+        fail("datagen", f"replan_overflow summed to {overflow}")
+    width = max(obs_lengths(pp))
+    if shapes["observations"] != (B, T, pp.num_agents, width) or traj["observations"].dtype != np.float16:
+        fail("datagen", f"observations {shapes['observations']} {traj['observations'].dtype}")
+    if not np.isfinite(traj["rewards"]).all():
+        fail("datagen", "non-finite rewards")
+    # Busy share: the device's busy time a step, from a torch.profiler trace
+    # of a chunk of DATAGEN_TRACE_STEPS steps (its copies included), over
+    # the counted run's wall time a step.
+    events, busy = busy_per_call(
+        lambda: collect_batch(pp, lay, B, DATAGEN_TRACE_STEPS, DATAGEN_TRACE_STEPS, gen), 1)
+    busy_step, wall_step = busy / DATAGEN_TRACE_STEPS, 1e3 * wall / T
+    rate = B * T / wall
+    say("datagen", f"medium B={B} x {T} steps in chunks of {chunk}: {rate:.1f} env steps/s "
+        f"with capture ({wall:.2f} s, {wall_step:.3f} ms a step), {mb_chunk:.1f} MB copied "
+        f"to the host a chunk, K1 launches {k1}, overflow {overflow}; per episode: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in got.items())
+        + f" (JAX deliveries {JAX_PARITY['deliveries']}); on {smi}")
+    say("datagen", f"device busy {busy_step:.3f} ms a step in a traced chunk of "
+        f"{DATAGEN_TRACE_STEPS} steps ({events / DATAGEN_TRACE_STEPS:.1f} device events a "
+        f"step): busy share {busy_step / wall_step:.3f}")
+    lo, hi = 0.9 * JAX_PARITY["deliveries"], 1.1 * JAX_PARITY["deliveries"]
+    if not lo <= got["deliveries"] <= hi:
+        fail("datagen", f"mean deliveries {got['deliveries']:.2f} outside [{lo:.1f}, {hi:.1f}]")
+    del traj
+    return k1, {"env_steps_per_sec": rate, "mb_per_chunk": mb_chunk,
+                "busy_share": busy_step / wall_step, **got}
+
+
+def phase_env_api(layout_cache):
+    """The env API on the card, each path's K1 launches counted (zeroed
+    before, read after): a 500-step medium episode through the gym adapter
+    driven by the dispatcher (terminateds at step 500 and not before; a
+    host sync a step by the gym contract), `heuristic_episode` on the same
+    adapter, `auto_reset_rollout` at B = 64 over 1,100 steps with host
+    synchronisation forbidden (two boundaries per env, cur_steps as JAX's
+    test pins it), `checked_step` over 100 steps at B = 64."""
+    import numpy as np
+    import torch
+
+    import swarm_ode_tpu_torch
+    from swarm_ode_tpu_torch import convert
+    from swarm_ode_tpu_torch.env import env as env_mod
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.invariants import InvariantError, checked_step, state_flags
+    from swarm_ode_tpu_torch.env.state import make_params
+    from swarm_ode_tpu_torch.ops import bfs_bitpack
+    from swarm_ode_tpu_torch.policies import heuristic as heur
+
+    cfg, lay, pp = layout_cache["medium"]
+    launches = {}
+    env = swarm_ode_tpu_torch.make(MEDIUM)
+    if env.params.device != pp.device:
+        fail("env-api", f"make() put the env on {env.params.device}, not {pp.device}")
+    steps = env.params.max_steps
+    policy = heur.make_policy(env.params, env.layout)
+    env.reset(seed=0)
+    h = heur.init_state(env.params, 1)
+    bfs_bitpack.LAUNCHES = 0
+    deliveries, t0 = 0, time.perf_counter()
+    for t in range(steps):
+        a, h = policy(env.params, env.state, h)
+        _, _, term, trunc, info = env.step(a[0].tolist())
+        deliveries += info["shelf_deliveries"]
+        if all(term) != (t == steps - 1) or term != trunc:
+            fail("env-api", f"gym step {t + 1}: terminateds {term}")
+    gym_s = time.perf_counter() - t0
+    launches["gym episode"] = bfs_bitpack.LAUNCHES
+    bfs_bitpack.LAUNCHES = 0
+    t0 = time.perf_counter()
+    infos, ret, ep_returns = heur.heuristic_episode(env, seed=0)
+    ep_s = time.perf_counter() - t0
+    launches["heuristic_episode"] = bfs_bitpack.LAUNCHES
+    ep_deliv = sum(i["shelf_deliveries"] for i in infos)
+    if deliveries <= 0 or ep_deliv <= 0 or len(infos) != steps:
+        fail("env-api", f"gym episode {deliveries}, heuristic_episode {ep_deliv} deliveries")
+    if abs(ret - float(ep_returns.sum())) > 1e-3:
+        fail("env-api", f"heuristic_episode's return {ret} != {ep_returns.sum()}")
+    say("env-api", f"gym adapter on the card, medium: a {steps}-step episode by env.step "
+        f"(terminateds at step {steps} only; {deliveries} deliveries) in {gym_s:.2f} s, "
+        f"{1e3 * gym_s / steps:.3f} ms a step with its host sync; heuristic_episode "
+        f"{ep_deliv} deliveries, return {ret:.2f}, {ep_s:.2f} s")
+
+    B, T = ENV_API_BATCH, AUTO_RESET_STEPS
+    g = torch.Generator(device="cuda").manual_seed(3)
+    s, h = step_mod.reset(pp, B, g), heur.init_state(pp, B)
+    policy = heur.make_policy(pp, lay)  # copies the picker zones to the card
+    torch.cuda.synchronize()
+    bfs_bitpack.LAUNCHES = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, h, (_, done, _) = env_mod.auto_reset_rollout(
+            pp, policy, lambda b: heur.init_state(pp, b), s, h, T, generator=g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ar_s = time.perf_counter() - t0
+    launches["auto_reset_rollout"] = bfs_bitpack.LAUNCHES
+    done = done.cpu().numpy()
+    last = T - 1 - np.argmax(done[:, ::-1], axis=1)
+    if not (done.sum(1) == 2).all():
+        fail("env-api", f"auto_reset_rollout boundaries per env: {sorted(set(done.sum(1)))}")
+    if not np.array_equal(s.cur_steps.cpu().numpy(), T - (last + 1)):
+        fail("env-api", "auto_reset_rollout's cur_steps do not count from the last boundary")
+    say("env-api", f"auto_reset_rollout, medium B={B} x {T} steps with host "
+        f"synchronisation forbidden: 2 boundaries per env, cur_steps {int(s.cur_steps[0])} "
+        f"at the end; {B * T / ar_s:.1f} env steps/s")
+
+    # checked_step beside the plain step on the same inputs: it raises
+    # exactly where check_state's flags (the same on the card and the CPU)
+    # say an invariant broke, with the first broken one's message, and
+    # returns the plain step's result elsewhere. JAX's own rollout breaks
+    # one invariant, two agents of one layer on one cell with neither fixing
+    # a clash (tests/test_torch_invariants.py); any other break fails.
+    pp_cpu = make_params(cfg, lay, "cpu")
+    step = checked_step(pp)
+    s = step_mod.reset(pp, B, g)
+    h = heur.init_state(pp, B)
+    broken = {}
+    checked_launches = 0
+    t0 = time.perf_counter()
+    for t in range(CHECKED_STEPS):
+        a, h = policy(pp, s, h)
+        n = step_mod.draw_noise(pp, B, g)
+        plain = step_mod.step(pp, s, a, noise=n)
+        flags = [(msg, ok.cpu()) for msg, ok in state_flags(pp, plain[0])]
+        cpu_flags = state_flags(pp_cpu, convert.env_state_to(plain[0], "cpu"))
+        if any(not torch.equal(ok, c) for (_, ok), (_, c) in zip(flags, cpu_flags)):
+            fail("env-api", f"step {t}: the invariant flags differ on the card and the CPU")
+        first = next((msg for msg, ok in flags if not bool(ok.all())), None)
+        # Counted around checked_step's call alone, not the plain step's.
+        bfs_bitpack.LAUNCHES = 0
+        try:
+            out = step(s, a, noise=n)
+            raised = None
+        except InvariantError as e:
+            raised = str(e)
+        checked_launches += bfs_bitpack.LAUNCHES
+        if first is None and (raised or not _states_equal(out[0], plain[0])):
+            fail("env-api", f"step {t}: checked_step raised {raised!r} or changed the step")
+        if first is not None and not (raised and raised.startswith(first)):
+            fail("env-api", f"step {t}: {first!r} broken, checked_step raised {raised!r}")
+        for msg, ok in flags:
+            if not bool(ok.all()):
+                broken[msg] = broken.get(msg, 0) + 1
+        s = plain[0]
+    launches["checked_step"] = checked_launches
+    if set(broken) - {OVERLAP}:
+        fail("env-api", f"invariants broken: {broken}")
+    say("env-api", f"checked_step, medium B={B} x {CHECKED_STEPS} steps beside the plain step: "
+        f"raised exactly where an invariant broke (steps with a break: {broken or 0}; "
+        f"the overlap is JAX's own), flags identical on the card and the CPU "
+        f"({time.perf_counter() - t0:.2f} s); K1 launches by path {launches}")
+    for path, want in (("gym episode", steps), ("heuristic_episode", steps),
+                       ("auto_reset_rollout", T), ("checked_step", CHECKED_STEPS)):
+        if launches[path] != want:
+            fail("env-api", f"{path}: K1 launched {launches[path]} times in {want} steps")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1450,12 +1756,14 @@ def main() -> None:
     layouts = {}
     query_times = phase_kernels(layouts, regs)
     k3_times, k3_err = phase_fields(layouts)
-    phase_card_vs_cpu(layouts)
+    k1_stochastic = phase_card_vs_cpu(layouts)
     by_setting = phase_main_path(layouts)
     k3_launches = phase_full_field(layouts)
     k4_launches, k4 = phase_gde(layouts, smi)
     k4_training, k4_trained = phase_train(layouts, smi)
     phase_distribution(layouts)
+    k1_datagen, _ = phase_datagen(layouts, smi)
+    k1_env_api = phase_env_api(layouts)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
     def entry(k, name, replaces, setting):
@@ -1470,10 +1778,16 @@ def main() -> None:
                 "launches_by_setting": {s: c[k] for s, c in by_setting.items()},
                 "library_ms": None, **query_times[k]}
 
+    k1 = entry("K1", "bitpack_query (K1)", "swarm_ode_tpu/ops/bfs_bitpack.py:75",
+               "bitpack32 (default)")
+    # K1's launches on the expert-data paths, each counted alone.
+    k1["launches_by_path"] = {
+        "main path rollout": by_setting["bitpack32"]["K1"], "datagen": k1_datagen,
+        "stochastic expert (card vs CPU)": k1_stochastic, **k1_env_api}
+
     planned, narrow = k4[435], k4[HIDDEN]
     record = {"kernels": [
-        entry("K1", "bitpack_query (K1)", "swarm_ode_tpu/ops/bfs_bitpack.py:75",
-              "bitpack32 (default)"),
+        k1,
         entry("K2", "bfs_query_int32 (K2)", "swarm_ode_tpu/ops/bfs_pallas.py:79", "int32"),
         # `launches`: the counted full-field rollout (bfs_backend="xla").
         {"name": "bfs_dist (K3)", "route": "cuda", "source": "swarm_ode_tpu_torch/csrc/bfs_dist.cu",

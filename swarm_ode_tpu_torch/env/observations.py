@@ -1,13 +1,13 @@
 """Observations and the state queries the dispatcher needs.
 
-Counterpart of `swarm_ode_tpu/env/observations.py`: `empty_shelf_info` and
-its helpers (the dispatcher's), and `observe`, the agents' flat observation
-vectors (reference spaces/MultiAgentGlobalObservationSpace.py:31-81 and
+Counterpart of `swarm_ode_tpu/env/observations.py`, batched over B envs:
+the state queries (reference warehouse.py:332-356), the action masks
+(warehouse.py:727-752) and `observe`, the agents' flat observation vectors
+(reference spaces/MultiAgentGlobalObservationSpace.py:31-81 and
 MultiAgentPartialObservationSpace.py:10-114), batched to (B, A, max_len).
 The JAX package assembles each agent's ragged vector with a trace-time loop
 over agents; here that layout is a static gather pattern, built once per
 configuration (`_obs_index`), and one gather per step fills every row.
-`compute_valid_action_masks` belongs to the env API and is not ported yet.
 """
 from __future__ import annotations
 
@@ -53,6 +53,58 @@ def empty_shelf_info(params: EnvParams, state: EnvState) -> torch.Tensor:
     )
     pending_unload = (cid > 0) & ((areq == Action.NOOP) | (areq == Action.TOGGLE_LOAD))
     return ((sid == 0) & ~pending_unload).to(torch.float32)
+
+
+def shelf_request_info(params: EnvParams, state: EnvState) -> torch.Tensor:
+    """(B, L) float32: the rack cell holds a requested shelf. Action-id
+    order (reference warehouse.py:335-342)."""
+    sid = _shelf_id_at(params, state, params.rack_cells)
+    return ((sid > 0) & take_ids(_in_queue(params, state), sid)).to(torch.float32)
+
+
+def carrying_shelf_info(params: EnvParams, state: EnvState) -> torch.Tensor:
+    """(B, num_agvs) bool (reference warehouse.py:332-333)."""
+    return state.agent_carrying[:, : params.num_agvs] > 0
+
+
+def _rack_flags(target: torch.Tensor, G: int, L: int) -> torch.Tensor:
+    """(B, L) bool: some agent's target is rack cell l. The JAX masks write
+    through `target - G - 1` with L as the drop index for non-rack targets
+    (`.at[...].set(..., mode="drop")`); here the drop index is a last column
+    of an (L + 1)-wide buffer, cut off after the scatter."""
+    slot = torch.where(target > G, target - G - 1, L).long()
+    flags = torch.zeros(target.shape[0], L + 1, dtype=torch.bool, device=target.device)
+    return flags.scatter(1, slot, True)[:, :L]
+
+
+def compute_valid_action_masks(
+    params: EnvParams,
+    state: EnvState,
+    pickers_to_agvs: bool = True,
+    block_conflicting_actions: bool = True,
+) -> torch.Tensor:
+    """(B, A, action_size) float32 mask (reference warehouse.py:727-752)."""
+    Na, G, L = params.num_agvs, params.num_goals, params.num_racks
+    requested = shelf_request_info(params, state)
+    empty = empty_shelf_info(params, state)
+    carrying = carrying_shelf_info(params, state).to(torch.float32)  # (B, Na)
+    agv_targeted = _rack_flags(state.agent_target[:, :Na], G, L)
+    pick_targeted = _rack_flags(state.agent_target[:, Na:], G, L)
+
+    valid_agvs = torch.where(carrying[..., None] > 0, empty[:, None, :], requested[:, None, :])
+    valid_pickers = agv_targeted.to(torch.float32) if pickers_to_agvs else requested
+    if block_conflicting_actions:
+        valid_agvs = torch.where(agv_targeted[:, None, :], 0.0, valid_agvs)
+        valid_pickers = torch.where(pick_targeted, 0.0, valid_pickers)
+
+    B = state.batch
+    masks = torch.ones(B, params.num_agents, params.num_actions, dtype=torch.float32,
+                       device=carrying.device)
+    masks[:, :Na, 1 + G:] = valid_agvs
+    masks[:, :Na, 1:1 + G] = carrying[..., None]
+    masks[:, Na:, 1 + G:] = valid_pickers[:, None, :]
+    masks[:, Na:, 1:1 + G] = 0.0
+    return masks
 
 
 def _lengths(num_agvs: int, num_pickers: int, num_racks: int, observation_type: str):

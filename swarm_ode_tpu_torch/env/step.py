@@ -84,11 +84,16 @@ def draw_noise(params: EnvParams, B: int, generator: torch.Generator) -> StepNoi
         break_r = torch.randint(
             0, 4, (B, params.num_agents), generator=generator, device=dev, dtype=I32
         )
-    u = torch.rand(
-        (B, params.num_goals, params.num_shelves), generator=generator, device=dev
-    )
+    gumbel = draw_gumbel((B, params.num_goals, params.num_shelves), generator, dev)
+    return StepNoise(break_r=break_r, delivery_gumbel=gumbel)
+
+
+def draw_gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel float32 noise, -log(-log(u)) with u uniform and
+    clamped to the smallest normal float32 (jax.random.gumbel's rule)."""
+    u = torch.rand(shape, generator=generator, device=device)
     u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return StepNoise(break_r=break_r, delivery_gumbel=-torch.log(-torch.log(u)))
+    return -torch.log(-torch.log(u))
 
 
 def micro_toward(cur_dir: torch.Tensor, move_dir: torch.Tensor) -> torch.Tensor:

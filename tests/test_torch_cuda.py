@@ -444,3 +444,137 @@ def test_train_gde_on_the_card(cuda, tmp_path):
     assert all(np.isfinite(hist)) and hist[1] < hist[0]
     again = tg.train_gde(ds, cfg, verbose=False)
     assert all(torch.equal(v, out["final_params"][k]) for k, v in again["final_params"].items())
+
+
+MEDIUM = "tarware-medium-19agvs-9pickers-partialobs-v1"
+
+
+def _medium(device):
+    from swarm_ode_tpu_torch.config import EnvConfig
+    from swarm_ode_tpu_torch.env.layout import build_layout
+    from swarm_ode_tpu_torch.env.state import make_params
+
+    cfg = EnvConfig.from_env_id(MEDIUM)
+    lay = build_layout(cfg)
+    return make_params(cfg, lay, device), lay
+
+
+def _same(a, b):
+    """Two tensors, or two dataclasses of tensors, equal bit for bit."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(a):
+        return all(_same(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
+    return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [1.0, 0.37])
+def test_experts_and_masks_card_equal_cpu(cuda, temperature):
+    """From one reset, with the same step and dispatcher draws made on the
+    CPU: the stochastic expert, the stateless expert and the action masks
+    on the card equal the CPU's at every step, and K1 runs once a step.
+    At T = 0.37 the division by the temperature is inexact: the card must
+    divide as the CPU does."""
+    from swarm_ode_tpu_torch import convert
+    from swarm_ode_tpu_torch.env import observations as obs_mod
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.policies import heuristic as heur
+
+    B, T = 8, 20
+    runs = {}
+    for dev in ("cpu", cuda):
+        pp, lay = _medium(dev)
+        g = torch.Generator().manual_seed(4)
+        pcpu, _ = _medium("cpu")
+        s = convert.env_state_to(step_mod.reset(pcpu, B, g), dev)
+        draws = [(step_mod.draw_noise(pcpu, B, g), heur.draw_dispatch_noise(pcpu, B, g))
+                 for _ in range(T)]
+        stoch = heur.make_policy(pp, lay, temperature=temperature)
+        expert = heur.make_stateless_expert(pp, lay)
+        h = heur.init_state(pp, B)
+        before = bfs_bitpack.LAUNCHES
+        out = []
+        for n, dn in draws:
+            n = step_mod.StepNoise(None, n.delivery_gumbel.to(dev))
+            dn = heur.DispatchNoise(dn.assign.to(dev), dn.goal.to(dev), dn.ret.to(dev))
+            a, h = stoch(pp, s, h, dn)
+            out.append((a, expert(pp, s), obs_mod.compute_valid_action_masks(pp, s), h))
+            s, *_ = step_mod.step(pp, s, a, noise=n)
+        runs[str(dev)] = out, s, bfs_bitpack.LAUNCHES - before
+    (cpu, s_cpu, _), (card, s_card, k1) = runs["cpu"], runs[str(cuda)]
+    for t, (x, y) in enumerate(zip(cpu, card)):
+        assert all(_same(a, b) for a, b in zip(x, y)), f"step {t}"
+    assert _same(s_cpu, s_card) and k1 == T
+
+
+@pytest.mark.cuda
+def test_collect_batch_card_equal_cpu(cuda):
+    """collect_batch's captured arrays on the card equal the CPU's, every
+    key (observations as float16 bits), chunks of 6 over 15 steps."""
+    import numpy as np
+
+    from swarm_ode_tpu_torch import convert
+    from swarm_ode_tpu_torch.data.collect import collect_batch
+    from swarm_ode_tpu_torch.env import step as step_mod
+
+    B, T = 8, 15
+    pcpu, lay = _medium("cpu")
+    g = torch.Generator().manual_seed(6)
+    s = step_mod.reset(pcpu, B, g)
+    noise = [step_mod.draw_noise(pcpu, B, g) for _ in range(T)]
+    want, _ = collect_batch(pcpu, lay, B, T, 6, state=s, noise=noise)
+    pgpu, _ = _medium(cuda)
+    got, stats = collect_batch(
+        pgpu, lay, B, T, 6, state=convert.env_state_to(s, cuda),
+        noise=[step_mod.StepNoise(None, n.delivery_gumbel.to(cuda)) for n in noise])
+    for k in want:
+        assert want[k].dtype == got[k].dtype and np.array_equal(
+            want[k].view(np.uint16) if want[k].dtype == np.float16 else want[k],
+            got[k].view(np.uint16) if got[k].dtype == np.float16 else got[k]), k
+    assert int(stats["replan_overflow"].sum()) == 0
+
+
+@pytest.mark.cuda
+def test_auto_reset_rollout_on_the_card_without_a_host_sync(cuda):
+    """Episodes of 10 steps over 25 at B = 16 on the card: the loop runs
+    with host synchronisation forbidden; two boundaries per env."""
+    from swarm_ode_tpu_torch.config import EnvConfig
+    from swarm_ode_tpu_torch.env import env as env_mod
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.layout import build_layout
+    from swarm_ode_tpu_torch.env.state import make_params
+    from swarm_ode_tpu_torch.policies import heuristic as heur
+
+    cfg = EnvConfig.from_env_id(MEDIUM, max_steps=10)
+    lay = build_layout(cfg)
+    pp = make_params(cfg, lay, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    policy = heur.make_policy(pp, lay)
+    s, h = step_mod.reset(pp, 16, g), heur.init_state(pp, 16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, h, (_, done, _) = env_mod.auto_reset_rollout(
+            pp, policy, lambda b: heur.init_state(pp, b), s, h, 25, generator=g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (done.sum(1) == 2).all() and (s.cur_steps == 5).all()
+
+
+@pytest.mark.cuda
+def test_gym_episode_on_the_card(cuda):
+    """The gym adapter on the card (the default device): terminateds at the
+    last step and not before; heuristic_episode delivers."""
+    import swarm_ode_tpu_torch
+    from swarm_ode_tpu_torch.policies import heuristic as heur
+
+    env = swarm_ode_tpu_torch.make("tarware-tiny-3agvs-2pickers-partialobs-v1", max_steps=30)
+    assert env.params.device.type == "cuda"
+    env.reset(seed=0)
+    for t in range(30):
+        _, _, term, trunc, _ = env.step([0] * env.num_agents)
+        assert all(term) == (t == 29) and term == trunc
+    infos, ret, ep = heur.heuristic_episode(swarm_ode_tpu_torch.make(
+        "tarware-tiny-3agvs-2pickers-partialobs-v1"), seed=0)
+    assert len(infos) == 500 and sum(i["shelf_deliveries"] for i in infos) > 3

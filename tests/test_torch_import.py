@@ -43,14 +43,26 @@ SLICE_MODULES = (
     "swarm_ode_tpu_torch.utils.optim",
     "swarm_ode_tpu_torch.train.train_gde",
     "swarm_ode_tpu_torch.entry",
+    "swarm_ode_tpu_torch.utils.metrics",
+    "swarm_ode_tpu_torch.env.env",
+    "swarm_ode_tpu_torch.env.invariants",
+    "swarm_ode_tpu_torch.env.gym_adapter",
+    "swarm_ode_tpu_torch.env.wrappers",
+    "swarm_ode_tpu_torch.env.rendering",
+    "swarm_ode_tpu_torch.data.hdf5_logger",
+    "swarm_ode_tpu_torch.data.collect",
 )
 # Modules a fresh interpreter must not load when it imports the port: JAX,
-# the JAX package and its training stack, and h5py (needed only to decode
-# an HDF5 file, and absent where the port runs on the card).
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "swarm_ode_tpu")
+# the JAX package and its training stack, h5py (needed only to decode or
+# write an HDF5 file) and matplotlib (only to render), both absent where the
+# port runs on the card.
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "matplotlib",
+             "swarm_ode_tpu")
 
 
 def test_port_imports_without_jax():
+    """Every module of the port in one fresh interpreter (gymnasium, which
+    env/wrappers.py needs, is installed here)."""
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
@@ -148,6 +160,10 @@ def test_device_parameters_default_to_the_card():
         "swarm_ode_tpu_torch.convert.adamw_state_from_numpy",
         "swarm_ode_tpu_torch.train.train_gde.train_gde",
         "swarm_ode_tpu_torch.entry.entry",
+        "swarm_ode_tpu_torch.make",
+        "swarm_ode_tpu_torch.env.env.WarehouseEnv.__init__",
+        "swarm_ode_tpu_torch.env.gym_adapter.Warehouse.__init__",
+        "swarm_ode_tpu_torch.data.collect.collect_data",
     }
     assert {k for k, v in found.items() if v == "cuda"} >= entry_points
 

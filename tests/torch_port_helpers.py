@@ -1,6 +1,6 @@
 """Shared helpers of the tests that hold swarm_ode_tpu_torch against the JAX
-package: JAX structs to numpy dicts, the JAX step's random draws,
-field-by-field comparison, the flagship GDE's weights read out of its
+package: JAX structs to numpy dicts, the JAX step's and the stochastic
+dispatcher's random draws, field-by-field comparison, the flagship GDE's weights read out of its
 exported blob, and medium windows of observations to serve."""
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from swarm_ode_tpu_torch.env.observations import observe
 from swarm_ode_tpu_torch.env.state import make_params as pmake_params
 from swarm_ode_tpu_torch.env.step import StepNoise
 from swarm_ode_tpu_torch.graphs import temporal as pt
-from swarm_ode_tpu_torch.policies.heuristic import heuristic_rollout
+from swarm_ode_tpu_torch.policies.heuristic import DispatchNoise, heuristic_rollout
 
 TINY = "tarware-tiny-3agvs-2pickers-partialobs-v1"
 MEDIUM = "tarware-medium-19agvs-9pickers-partialobs-v1"
@@ -83,6 +83,30 @@ def jax_noise(jparams, keys):
         delivery_gumbel=torch.from_numpy(np.asarray(g).copy()),
     )
     return noise, nxt
+
+
+@functools.lru_cache(maxsize=None)
+def _dispatch_noise_fn(R: int, Na: int, G: int, L: int):
+    """Per env: the Gumbel draws the JAX dispatcher makes from its step key
+    at temperature > 0, in its split order (policies/heuristic.py:143,
+    :168 with :90, :187, :233 with :90)."""
+
+    def one(key):
+        k_assign, k_goal, k_ret = jax.random.split(key, 3)
+        assign = jax.vmap(lambda k: jax.random.gumbel(k, (Na,)))(jax.random.split(k_assign, R))
+        goal = jax.random.gumbel(k_goal, (Na, G))
+        ret = jax.vmap(lambda k: jax.random.gumbel(k, (L,)))(jax.random.split(k_ret, Na))
+        return assign, goal, ret
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_dispatch_noise(jparams, keys) -> DispatchNoise:
+    """The port's DispatchNoise of B envs from their (B, 2) JAX step keys."""
+    a, g, r = _dispatch_noise_fn(
+        jparams.request_queue_size, jparams.num_agvs, jparams.num_goals, jparams.num_racks
+    )(keys)
+    return DispatchNoise(*(torch.from_numpy(np.asarray(x).copy()) for x in (a, g, r)))
 
 
 def jax_reset_batch(jparams, B: int, seed: int):
