@@ -95,7 +95,23 @@ Phases, one line of output each (any failure exits non-zero):
      steps at B = 64 beside the plain step: it raises exactly where the
      invariant flags (the same on the card and the CPU) break, and only
      the break JAX's own rollout makes (two agents of one layer on one
-     cell, neither fixing a clash) may occur; K1's launches on each path.
+     cell, neither fixing a clash) may occur; K1's launches on each path;
+ 13. off-policy MARL: card against CPU at medium, B = 8 (TF32 off): hetero
+     graphs, masks_from_feats, busy flags and selections (epsilon-greedy,
+     the claim auction's epsilon-greedy and sampling) identical, Q-values
+     of gnn, gnode and gnode_comm within 1e-5 of the largest |Q|, one IQL
+     and one QMIX learn step (n_step 3, value_transform, coordinated) with
+     the loss and gradient within 1e-5 and Adam from the CPU's gradients
+     within 1e-6; run_marl with experiments/medium_qmix_long.py's recipe for one
+     stride (qmix, gnode, 8 envs x 500 steps, hidden 64, buffer 100,000,
+     batch 64, a learn step every env step), the episode with host
+     synchronisation forbidden, counts zeroed before and read after (K1 500
+     times, overflow 0), a finite nonzero loss, every parameter a Q head
+     reaches moved; marl_env_steps_per_sec, ms per learn step, peak memory,
+     busy share of a traced block; the greedy evaluation (8 envs x 500
+     steps) resuming from the run's checkpoint, the agent restored bit for
+     bit; make_policy_fn(coordinated=True) serving the trained Q-network
+     over one medium episode; K1's launches on each path.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `bound_ms` is the least time the
@@ -174,6 +190,20 @@ DATAGEN_BATCH, DATAGEN_CHUNK, DATAGEN_TRACE_STEPS = 128, 100, 5
 ENV_API_BATCH, AUTO_RESET_STEPS, CHECKED_STEPS = 64, 1100, 100
 # The one invariant JAX's own medium rollout breaks (tests/test_torch_invariants.py).
 OVERLAP = "same-layer agents overlap without fixing-clash"
+# Off-policy MARL: experiments/medium_qmix_long.py's recipe for one stride
+# (medium, qmix, gnode, 8 envs, hidden 64, a 100,000-item buffer, batch 64,
+# learn_every 1, n_step 3, value_transform): 8 episodes of 500 steps in
+# lockstep. Card against CPU at the same width (TF32 off): Q-values within
+# 1e-5 of the largest |Q|, a learn step's loss within 1e-5 of itself, its
+# gradient within 1e-5 of its largest element, the parameters after Adam on
+# the card from the CPU's gradients within 1e-6 (as the GDE training
+# phase holds AdamW); graphs, masks, busy
+# flags and selections identical. The busy share from a traced block of
+# MARL_TRACE_STEPS steps with learning; ms per learn step over
+# MARL_LEARN_REPS steps.
+MARL_ENVS, MARL_HIDDEN, MARL_BUFFER, MARL_BATCH = 8, 64, 100_000, 64
+MARL_Q_RTOL, MARL_LOSS_RTOL, MARL_GRAD_RTOL, MARL_OPT_ATOL = 1e-5, 1e-5, 1e-5, 1e-6
+MARL_TRACE_STEPS, MARL_LEARN_REPS = 5, 20
 
 
 def say(phase: str, msg: str) -> None:
@@ -1743,6 +1773,352 @@ def phase_env_api(layout_cache):
     return launches
 
 
+def _tree_to(x, device):
+    """Nested dicts / lists / tuples / agent states of tensors, on `device`."""
+    import dataclasses as dc
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _tree_to(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tree_to(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree_to(v, device) for v in x)
+    if dc.is_dataclass(x):
+        return type(x)(**{f.name: _tree_to(getattr(x, f.name), device) for f in dc.fields(x)})
+    return x
+
+
+def _max_err(got, ref) -> float:
+    return float((got.detach().cpu() - ref.detach().cpu()).abs().max())
+
+
+def marl_card_vs_cpu(cfg_env, lay, pp):
+    """The MARL path's pieces, card against CPU, on B = 8 medium envs after
+    one reset and 40 steps of random valid actions (every draw made on the
+    CPU and moved to the card): graphs, masks_from_feats and busy flags
+    identical; Q-values of gnn, gnode and gnode_comm (hidden 64) within
+    MARL_Q_RTOL of the largest |Q|; epsilon-greedy, the claim auction's
+    epsilon-greedy and its sampling identical on the same Q-values and
+    draws; one IQL and one QMIX learn step (n_step 3, value_transform,
+    coordinated) from one sampled batch: loss and gradient within the
+    MARL_* tolerances, Adam from the CPU's gradients within MARL_OPT_ATOL.
+    Returns the numbers printed."""
+    import dataclasses as dc
+
+    import torch
+
+    from swarm_ode_tpu_torch import convert
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.observations import compute_valid_action_masks, observe
+    from swarm_ode_tpu_torch.env.state import make_params
+    from swarm_ode_tpu_torch.graphs import hetero
+    from swarm_ode_tpu_torch.rl import coordination, replay
+    from swarm_ode_tpu_torch.rl.dqn import ActNoise, epsilon_greedy, module_params, q_values
+    from swarm_ode_tpu_torch.train import run_rl
+    from swarm_ode_tpu_torch.utils.optim import adamw_update, clip_by_global_norm
+
+    dev = pp.device
+    pp_cpu = make_params(cfg_env, lay, "cpu")
+    g = torch.Generator().manual_seed(31)
+    B = MARL_ENVS
+    s = step_mod.reset(pp_cpu, B, g)
+    obs = []
+    for t in range(40):
+        m = compute_valid_action_masks(pp_cpu, s)
+        a = (torch.rand(m.shape, generator=g) * m).argmax(-1).to(torch.int32)
+        s = step_mod.step(pp_cpu, s, a, generator=g)[0]
+        if t % 10 == 9:
+            o_cpu = observe(pp_cpu, s)
+            o_gpu = observe(pp, convert.env_state_to(s, dev))
+            if not torch.equal(o_gpu.cpu(), o_cpu):
+                fail("marl", f"step {t}: observations differ on the card and the CPU")
+            obs.append(o_cpu)
+    obs = torch.cat(obs)  # (32, A, D)
+    ref = dict(vars(hetero.hetero_graph_from_obs(pp_cpu, obs)))
+    got = dict(vars(hetero.hetero_graph_from_obs(pp, obs.to(dev))))
+    f_cpu, f_gpu = hetero.split_observation(pp_cpu, obs), hetero.split_observation(pp, obs.to(dev))
+    ref["masks"], got["masks"] = (hetero.masks_from_feats(p, *f) for p, f in
+                                  ((pp_cpu, f_cpu), (pp, f_gpu)))
+    ref["busy"], got["busy"] = (coordination.busy_from_feats(*f[:2]) for f in (f_cpu, f_gpu))
+    for k in ref:
+        if not torch.equal(got[k].cpu(), ref[k]):
+            fail("marl", f"{k} differs on the card and the CPU")
+    edges = int(ref["agv2pick"].sum() + ref["pick2loc"].sum() + ref["agv2agv"].sum())
+
+    q_err = {}
+    for net in ("gnn", "gnode", "gnode_comm"):
+        cfg = run_rl.RLRunConfig(net=net, hidden_dim=MARL_HIDDEN, device="cpu")
+        _, net_cpu = run_rl.make_agent(cfg, pp_cpu)
+        net_cpu.init_(torch.Generator().manual_seed(3))
+        _, net_gpu = run_rl.make_agent(dc.replace(cfg, device="cuda"), pp)
+        net_gpu.load_state_dict(net_cpu.state_dict())
+        with torch.no_grad():
+            qc = q_values(net_cpu, dict(net_cpu.named_parameters()),
+                          hetero.hetero_graph_from_obs(pp_cpu, obs))
+            qg = q_values(net_gpu, dict(net_gpu.named_parameters()),
+                          hetero.hetero_graph_from_obs(pp, obs.to(dev)))
+        q_err[net] = _max_err(qg, qc) / float(qc.abs().max())
+        if q_err[net] > MARL_Q_RTOL:
+            fail("marl", f"{net}: Q-values differ by {q_err[net]:.2e} of the largest |Q|")
+
+    # Selection on the same Q-values (the last network's) and draws.
+    n = pp.num_actions
+    noise = [ActNoise(torch.rand(qc.shape[:2], generator=g), torch.rand(qc.shape, generator=g)),
+             ActNoise(torch.rand(qc.shape[:2], generator=g),
+                      step_mod.draw_gumbel(qc.shape, g, "cpu"))]
+    active = ~ref["busy"]
+    eps = torch.tensor(0.5)
+    picks = {}
+    for coordinated, nz in ((True, noise[0]), (False, noise[1])):
+        picks[coordinated] = [epsilon_greedy(*(x.to(d) if isinstance(x, torch.Tensor) else x
+                                               for x in (qc, ref["masks"], eps)),
+                                             ActNoise(nz.explore_u.to(d), nz.row.to(d)),
+                                             pcfg, coordinated, active.to(d))
+                              for d, pcfg in (("cpu", pp_cpu), (dev, pp))]
+    picks["sample"] = [coordination.coordinated_sample(
+        qc.to(d), ref["masks"].to(d), pp.num_agvs, 1 + pp.num_goals, noise[1].row.to(d),
+        active.to(d)) for d in ("cpu", dev)]
+    for k, (c, gg) in picks.items():
+        if not torch.equal(gg.cpu(), c):
+            fail("marl", f"selection {k}: actions differ on the card and the CPU")
+
+    # One learn step of each algorithm from one sampled batch.
+    learn = {}
+    base = run_rl.RLRunConfig(num_envs=B, hidden_dim=MARL_HIDDEN, buffer_size=256,
+                              batch_size=MARL_BATCH, n_step=3, value_transform=True,
+                              coordinated=True, device="cpu", seed=5)
+    run = run_rl.MarlRun(base)
+    es = run.draws.reset(B)
+    o = observe(pp_cpu, es)
+    for t in range(12):
+        es, o, _ = run.env_step(es, o, t, 0)
+    idx = torch.randint(0, run.buf.size, (MARL_BATCH,), generator=g)
+    sampled = replay.sample_nstep(run.buf, MARL_BATCH, 3, B, idx=idx)
+    for algo in ("iql", "qmix"):
+        cfg = dc.replace(base, algo=algo)
+        agent_c, _ = run_rl.make_agent(cfg, pp_cpu)
+        agent_g, _ = run_rl.make_agent(dc.replace(cfg, device="cuda"), pp)
+        st = agent_c.init(torch.Generator().manual_seed(7))
+        batch = run_rl.batch_from(sampled, algo, agent_c.cfg.gamma, 3)
+        new_c, aux_c, gr_c = agent_c.learn_with_grads(st, batch)
+        new_g, aux_g, gr_g = agent_g.learn_with_grads(_tree_to(st, dev), _tree_to(batch, dev))
+        loss_err = abs(float(aux_g["loss"]) - float(aux_c["loss"])) / abs(float(aux_c["loss"]))
+        scale = max(float(v.abs().max()) for v in gr_c.values())
+        grad_err = max(_max_err(gr_g[k], gr_c[k]) for k in gr_c) / scale
+        # Adam on the card from the CPU's clipped gradients: its arithmetic
+        # alone. From each side's own gradients Adam divides each element by
+        # its own magnitude (plus 1e-8), so a parameter whose gradient is
+        # near 1e-8 moves by up to lr/2 and a rounding difference in that
+        # gradient shows amplified: that difference is printed, not held.
+        names = list(st.params)
+        clipped = clip_by_global_norm([gr_c[k] for k in names], agent_c.cfg.grad_clip)
+        on_card = [st.params[k].to(dev).clone() for k in names]
+        adamw_update(on_card, [c.to(dev) for c in clipped],
+                     _tree_to(st.opt_state, dev), agent_c.cfg.lr, 0.0)
+        opt_err = max(_max_err(p, new_c.params[k]) for p, k in zip(on_card, names))
+        own = {k: _max_err(new_g.params[k], new_c.params[k]) for k in names}
+        worst = max(own, key=own.get)
+        learn[algo] = (float(aux_c["loss"]), loss_err, grad_err, opt_err, own[worst], worst,
+                       float(gr_c[worst].abs().min()))
+        if not (loss_err <= MARL_LOSS_RTOL and grad_err <= MARL_GRAD_RTOL
+                and opt_err <= MARL_OPT_ATOL):
+            fail("marl", f"{algo} learn step card vs CPU: loss {loss_err:.2e}, gradient "
+                 f"{grad_err:.2e}, parameters after Adam from the CPU's gradients {opt_err:.2e}")
+    n_params = sum(v.numel() for v in module_params(agent_c.net).values())
+    say("marl", f"card vs CPU (TF32 off), medium B={B} after 40 random-action steps: hetero "
+        f"graphs ({edges} agent edges), masks_from_feats and busy flags identical; Q-values "
+        f"(hidden {MARL_HIDDEN}; the gnode Q-network has {n_params} parameters) within "
+        + ", ".join(f"{k} {v:.2e}" for k, v in q_err.items())
+        + " of the largest |Q|; epsilon-greedy, coordinated epsilon-greedy and coordinated "
+        "sampling identical; one learn step from one sampled batch of "
+        f"{MARL_BATCH} (n_step 3, value_transform, coordinated): "
+        + "; ".join(f"{k} loss {v[0]:.5f}, rel. error {v[1]:.2e}, gradient {v[2]:.2e} of its "
+                    f"largest, parameters after Adam from the CPU's gradients {v[3]:.2e} (from "
+                    f"the card's own: {v[4]:.2e}, at {v[5]}, whose smallest |gradient| is "
+                    f"{v[6]:.2e})" for k, v in learn.items()))
+    return {"q_rel_err": q_err, "learn": learn}
+
+
+def phase_marl(layout_cache, smi):
+    """Off-policy MARL on the card: the pieces card against CPU
+    (marl_card_vs_cpu); run_marl with medium_qmix_long's recipe for one
+    stride of 8 envs x 500 steps, the episode under host sync forbidden,
+    counts zeroed before and read after (K1 once a step, overflow 0), the
+    loss finite and nonzero, the parameters moved; env steps/s with
+    learning, ms per learn step, peak memory, busy share; the greedy
+    evaluation (8 envs x 500 steps) resuming from the run's checkpoint,
+    which must restore the agent bit for bit; make_policy_fn(coordinated)
+    serving the trained Q-network over one medium episode. Returns
+    (K1 launches by path, the numbers printed)."""
+    import dataclasses as dc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.observations import observe
+    from swarm_ode_tpu_torch.ops import bfs_bitpack
+    from swarm_ode_tpu_torch.rl import replay
+    from swarm_ode_tpu_torch.serving import make_policy_fn
+    from swarm_ode_tpu_torch.train import run_rl
+
+    cfg_env, lay, pp = layout_cache["medium"]
+    t_phase = time.perf_counter()
+    checks = marl_card_vs_cpu(cfg_env, lay, pp)
+    launches, out = {}, {}
+    with tempfile.TemporaryDirectory() as ckdir:
+        cfg = run_rl.RLRunConfig(
+            env_id=MEDIUM, algo="qmix", net="gnode", num_envs=MARL_ENVS,
+            num_episodes=MARL_ENVS, hidden_dim=MARL_HIDDEN, buffer_size=MARL_BUFFER,
+            batch_size=MARL_BATCH, seed=0, checkpoint_dir=ckdir, checkpoint_every=MARL_ENVS,
+            forbid_host_sync=True)
+        agent, _ = run_rl.make_agent(cfg, pp)
+        start = agent.init(torch.Generator(device="cuda").manual_seed(0))
+        init = {k: v.clone() for k, v in start.params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bfs_bitpack.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = run_rl.run_marl(cfg, verbose=False, agent_state=start)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["marl train"] = bfs_bitpack.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        stats, losses, trained = res["history"][0], res["losses"][0], res["agent_state"]
+        steps = len(losses)  # learn_every = 1: one learn step an env step
+        buf_gb = res["buffer"].nbytes() / 1e9
+        if launches["marl train"] != steps or stats["replan_overflow"]:
+            fail("marl", f"training: K1 launched {launches['marl train']} times in {steps} "
+                 f"steps, overflow {stats['replan_overflow']}")
+        if not (np.isfinite(losses).all() and stats["loss"] != 0.0):
+            fail("marl", f"training loss {stats['loss']} (finite: {np.isfinite(losses).all()})")
+        # The last conv block's location outputs feed no Q head: those
+        # relations' parameters get zero gradients (in JAX too) and stay.
+        last = f"q.encoder.conv{agent.net.encoder.num_layers - 1}."
+        unreached = {k for k in init if k.startswith(last) and (
+            ".agv_targets_loc." in k or ".pick_manages_loc." in k)}
+        still = {k for k, v in init.items() if torch.equal(trained.params[k], v)}
+        moved = len(init) - len(still)
+        if still != unreached:
+            fail("marl", f"parameter tensors unchanged by training: {sorted(still)}, expected "
+                 f"exactly those no Q head reaches: {sorted(unreached)}")
+        rate = MARL_ENVS * steps / stats["seconds"]
+        wall_step = 1e3 * stats["seconds"] / steps
+
+        # ms per learn step, alone: sample + batch + learn, synchronised.
+        learn_agent, _ = run_rl.make_agent(cfg, pp)
+        gcuda = torch.Generator(device="cuda").manual_seed(9)
+
+        def learn_once():
+            sampled = replay.sample_nstep(res["buffer"], MARL_BATCH, cfg.n_step, MARL_ENVS,
+                                          generator=gcuda)
+            learn_agent.learn(trained, run_rl.batch_from(sampled, "qmix",
+                                                         learn_agent.cfg.gamma, cfg.n_step))
+
+        learn_once()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(MARL_LEARN_REPS):
+            learn_once()
+        torch.cuda.synchronize()
+        learn_ms = 1e3 * (time.perf_counter() - t1) / MARL_LEARN_REPS
+
+        # Busy share: a traced block of steps with learning (the run's code,
+        # on its trained state) over the training run's wall time a step.
+        run = run_rl.MarlRun(dc.replace(cfg, buffer_size=4096, checkpoint_dir=None),
+                             agent_state=trained)
+        es = run.draws.reset(MARL_ENVS)
+        o = observe(pp, es)
+        carry = {"es": es, "obs": o, "t": 0}
+        for _ in range(12):  # fill past the warm start
+            carry["es"], carry["obs"], _ = run.env_step(carry["es"], carry["obs"], carry["t"], 0)
+            carry["t"] += 1
+
+        def block():
+            for _ in range(MARL_TRACE_STEPS):
+                carry["es"], carry["obs"], _ = run.env_step(carry["es"], carry["obs"],
+                                                            carry["t"], 0)
+                carry["t"] += 1
+                run.learn_block()
+
+        events, busy = busy_per_call(block, 1)
+        busy_step = busy / MARL_TRACE_STEPS
+        say("marl", f"run_marl, medium_qmix_long's recipe for one stride (qmix, gnode, "
+            f"{MARL_ENVS} envs x {steps} steps, hidden {MARL_HIDDEN}, buffer {MARL_BUFFER} "
+            f"({buf_gb:.3f} GB on the card), batch {MARL_BATCH}, learn every step, n_step 3, "
+            f"value_transform), the episode with host synchronisation forbidden: "
+            f"marl_env_steps_per_sec {rate:.1f} ({wall_step:.3f} ms a step with its learn "
+            f"step; {wall:.2f} s with set-up), {learn_ms:.3f} ms per learn step alone "
+            f"(synchronised, mean of {MARL_LEARN_REPS}); peak memory {peak_gb:.3f} GiB; K1 "
+            f"launches {launches['marl train']}, overflow {stats['replan_overflow']}; loss "
+            f"{stats['loss']:.5f} (mean of {int((losses != 0).sum())} learn steps), epsilon "
+            f"{float(trained.epsilon):.4f}, {moved} of {len(init)} parameter tensors moved (the "
+            f"{len(unreached)} no Q head reaches stayed); "
+            f"deliveries {stats['deliveries']} an env, pick rate {stats['pick_rate']:.2f}; "
+            f"on {smi}")
+        say("marl", f"device busy {busy_step:.3f} ms a step in a traced block of "
+            f"{MARL_TRACE_STEPS} steps with learning ({events / MARL_TRACE_STEPS:.1f} device "
+            f"events a step): busy share {busy_step / wall_step:.3f}")
+
+        # Greedy evaluation, resuming from the run's checkpoint.
+        ecfg = dc.replace(cfg, num_episodes=0, eval_episodes=MARL_ENVS, resume_from=ckdir,
+                          checkpoint_dir=None, forbid_host_sync=False)
+        torch.cuda.synchronize()
+        bfs_bitpack.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ev = run_rl.run_marl(ecfg, verbose=False)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches["marl eval"] = bfs_bitpack.LAUNCHES
+        rs = ev["agent_state"]
+        same = all(torch.equal(getattr(rs, k)[n], getattr(trained, k)[n])
+                   for k in ("params", "target_params") for n in trained.params)
+        same = same and all(torch.equal(a, b) for a, b in zip(
+            [rs.opt_state.count, rs.epsilon, rs.step, *rs.opt_state.mu, *rs.opt_state.nu],
+            [trained.opt_state.count, trained.epsilon, trained.step, *trained.opt_state.mu,
+             *trained.opt_state.nu]))
+        if not same:
+            fail("marl", "resume_from did not restore the agent state bit for bit")
+        if launches["marl eval"] != steps:
+            fail("marl", f"eval: K1 launched {launches['marl eval']} times in {steps} steps")
+        eh = ev["history"][0]
+
+    # The trained Q-network served through make_policy_fn (claim auction)
+    # over one medium episode.
+    net = run_rl.make_network(cfg, pp.num_actions,
+                              1.0 / max(pp.grid_h, pp.grid_w)).to(pp.device)
+    policy = make_policy_fn(pp, net, run_rl.agent_params(trained), coordinated=True)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    s = step_mod.reset(pp, 1, g)
+    torch.cuda.synchronize()
+    bfs_bitpack.LAUNCHES = 0
+    deliv = torch.zeros((), device=pp.device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        a = policy(observe(pp, s))
+        s, _, _, info = step_mod.step(pp, s, a, generator=g)
+        deliv += info["shelf_deliveries"].sum()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches["policy served"] = bfs_bitpack.LAUNCHES
+    if launches["policy served"] != steps:
+        fail("marl", f"served policy: K1 launched {launches['policy served']} times")
+    say("marl", f"greedy evaluation resumed from the checkpoint (agent state restored bit for "
+        f"bit): {MARL_ENVS} envs x {steps} steps in {eval_s:.2f} s, deliveries "
+        f"{eh['eval_deliveries']:.2f} an env, return {eh['eval_return']:.2f}; "
+        f"make_policy_fn(coordinated=True) serving the trained Q-network over one medium "
+        f"episode: {int(deliv)} deliveries, {1e3 * serve_s / steps:.3f} ms a step; K1 launches "
+        f"by path {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    out.update(checks, env_steps_per_sec=rate, ms_per_step=wall_step, learn_ms=learn_ms,
+               peak_gib=peak_gb, busy_share=busy_step / wall_step, buffer_gb=buf_gb)
+    return launches, out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1764,6 +2140,7 @@ def main() -> None:
     phase_distribution(layouts)
     k1_datagen, _ = phase_datagen(layouts, smi)
     k1_env_api = phase_env_api(layouts)
+    k1_marl, _ = phase_marl(layouts, smi)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
     def entry(k, name, replaces, setting):
@@ -1783,7 +2160,7 @@ def main() -> None:
     # K1's launches on the expert-data paths, each counted alone.
     k1["launches_by_path"] = {
         "main path rollout": by_setting["bitpack32"]["K1"], "datagen": k1_datagen,
-        "stochastic expert (card vs CPU)": k1_stochastic, **k1_env_api}
+        "stochastic expert (card vs CPU)": k1_stochastic, **k1_env_api, **k1_marl}
 
     planned, narrow = k4[435], k4[HIDDEN]
     record = {"kernels": [

@@ -17,7 +17,12 @@ Ported so far:
     the env API (`env/env.py`, the action masks, `env/invariants.py`, the
     gym adapter `env/gym_adapter.py` with `make` and `register_gym_envs`
     below, `env/wrappers.py`, `env/rendering.py`) and offline datagen
-    (`data/collect.py`, `data/hdf5_logger.py`, `utils/metrics.py`).
+    (`data/collect.py`, `data/hdf5_logger.py`, `utils/metrics.py`);
+  * off-policy MARL: the hetero graph (`graphs/hetero.py`), the GNN and
+    graph-ODE Q-networks and the QMIX mixers (`models/hetero_gnn.py`,
+    `models/gnode.py`, `models/qmix.py`), n-step replay, the claim auction,
+    IQL and QMIX (`rl/`), `train/run_rl.run_marl` with its CLI, and
+    `serving.make_policy_fn`.
 The kernels' sources are under csrc/.
 
 This package imports torch and numpy and never jax. Importing it builds
@@ -25,9 +30,10 @@ nothing; the CUDA kernels are compiled at first use on a GPU.
 
 A function that takes a `device` (`env.state.make_params`, `make`,
 `graphs.temporal.init_window`, the `convert.*_from_numpy` loaders,
-`train.train_gde.train_gde`, `data.collect.collect_data`, `entry.entry`)
-puts its tensors on the card unless the caller passes `device="cpu"`;
-without a card such a call raises. Everything else runs where its inputs
+`train.train_gde.train_gde`, `data.collect.collect_data`, `entry.entry`;
+and `train.run_rl.run_marl` through `RLRunConfig.device`) puts its tensors
+on the card unless the caller passes `device="cpu"`; without a card such a
+call raises. Everything else runs where its inputs
 lie.
 """
 from __future__ import annotations

@@ -9,18 +9,24 @@ and is ignored. The GDE's flax parameter tree converts to a state dict of
 `models/gde.GraphODE` and back (`gde_params_from_numpy`,
 `gde_params_to_numpy`), and the trainer's optimizer state to and from
 optax's (clip_by_global_norm, adamw) chain state as numpy
-(`adamw_state_from_numpy`, `adamw_state_to_numpy`).
+(`adamw_state_from_numpy`, `adamw_state_to_numpy`). The MARL Q-networks
+(models/hetero_gnn.py, models/gnode.py), the mixers (models/qmix.py) and
+the IQL / QMIX agent states (rl/dqn.DQNState: parameters, target
+parameters, Adam's state, epsilon, step) convert the same way
+(`flax_params_to_state_dict`, `qnet_params_to_numpy`,
+`agent_state_from_numpy`, `agent_state_to_numpy`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from swarm_ode_tpu_torch.env.state import EnvParams, EnvState
 from swarm_ode_tpu_torch.policies.heuristic import HeuristicState
+from swarm_ode_tpu_torch.rl.dqn import DQNState
 from swarm_ode_tpu_torch.utils.optim import AdamWState
 
 
@@ -151,3 +157,106 @@ def adamw_state_to_numpy(state: AdamWState, names: Sequence[str]):
     mu = gde_params_to_numpy(dict(zip(names, state.mu)))
     nu = gde_params_to_numpy(dict(zip(names, state.nu)))
     return ((), ((state.count.detach().cpu().numpy(), mu, nu), (), ()))
+
+
+def flax_params_to_state_dict(tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
+    """A flax parameter tree as numpy (any nesting; the `params` collection
+    levels are skipped) -> a state dict whose names are the tree's paths
+    joined by dots: `<path>.weight` from a Dense `kernel`, transposed (flax
+    (in, out), torch (out, in)), `<path>.bias` from `bias`. The port's MARL
+    modules carry the flax names, so this is their state dict: a Q-network
+    ({'params': {...}} for gnn, {'encoder': {'params': ...}, ...} for
+    gnode), a mixer, or QMIX's {'q': ..., 'mixer': ...} (names `q.` and
+    `mixer.`)."""
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path if k == "params" else path + [k])
+            elif k == "kernel":
+                out[".".join(path + ["weight"])] = _tensor(np.asarray(v).T, device)
+            elif k == "bias":
+                out[".".join(path + ["bias"])] = _tensor(v, device)
+            else:
+                raise KeyError(f"unexpected leaf {'/'.join(path + [k])}")
+
+    walk(tree, [])
+    return out
+
+
+def _nested(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    tree = {}
+    for name, v in state_dict.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        a = v.detach().cpu().numpy()
+        node["kernel" if leaf == "weight" else "bias"] = a.T.copy() if leaf == "weight" else a
+    return tree
+
+
+def qnet_params_to_numpy(state_dict: Mapping[str, torch.Tensor], net: str) -> dict:
+    """The inverse of flax_params_to_state_dict for a Q-network of `net`
+    ('gnn': one flax module, {'params': tree}; 'gnode' / 'gnode_comm': a
+    composite of flax modules, {child: {'params': tree}})."""
+    tree = _nested(state_dict)
+    if net == "gnn":
+        return {"params": tree}
+    if net in ("gnode", "gnode_comm"):
+        return {k: {"params": v} for k, v in tree.items()}
+    raise ValueError(f"net must be gnn, gnode or gnode_comm, got {net!r}")
+
+
+def mixer_params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    return {"params": _nested(state_dict)}
+
+
+def _agent_params_to_numpy(params: Mapping[str, torch.Tensor], net: str, algo: str) -> dict:
+    if algo == "iql":
+        return qnet_params_to_numpy(params, net)
+    q = {k[2:]: v for k, v in params.items() if k.startswith("q.")}
+    m = {k[6:]: v for k, v in params.items() if k.startswith("mixer.")}
+    return {"q": qnet_params_to_numpy(q, net), "mixer": mixer_params_to_numpy(m)}
+
+
+def agent_state_from_numpy(state, names: Optional[Sequence[str]] = None, device="cuda"):
+    """rl/dqn.DQNState (also QMIX's) from a JAX DQNState / QMIXState with
+    numpy leaves (`jax.tree.map(np.asarray, state)`): params and
+    target_params flax trees, opt_state optax's chain(clip_by_global_norm,
+    adam) state (EmptyState(), (ScaleByAdamState(count, mu, nu),
+    EmptyState())), epsilon, step. `names` orders the parameters (the
+    agent's own order, e.g. `list(agent.init(g).params)`); the tree's order
+    by default."""
+    params = flax_params_to_state_dict(state.params, device)
+    names = list(names) if names is not None else list(params)
+    if set(names) != set(params):
+        raise KeyError(f"parameter names differ: {sorted(set(names) ^ set(params))}")
+    target = flax_params_to_state_dict(state.target_params, device)
+    _, (adam, *_) = state.opt_state
+    count, mu, nu = adam
+    mu, nu = flax_params_to_state_dict(mu, device), flax_params_to_state_dict(nu, device)
+    return DQNState(
+        params={n: params[n] for n in names},
+        target_params={n: target[n] for n in names},
+        opt_state=AdamWState(_tensor(np.asarray(count, np.int32), device),
+                             [mu[n] for n in names], [nu[n] for n in names]),
+        epsilon=_tensor(np.asarray(state.epsilon, np.float32), device),
+        step=_tensor(np.asarray(state.step, np.int32), device))
+
+
+def agent_state_to_numpy(state, net: str, algo: str) -> dict:
+    """The inverse of agent_state_from_numpy, as a dict of the JAX state's
+    fields; opt_state is ((), ((count, mu, nu), ())), optax's chain state
+    with each EmptyState as (), so its leaves come in optax's order."""
+    names = list(state.params)
+    mu = _agent_params_to_numpy(dict(zip(names, state.opt_state.mu)), net, algo)
+    nu = _agent_params_to_numpy(dict(zip(names, state.opt_state.nu)), net, algo)
+    return {
+        "params": _agent_params_to_numpy(state.params, net, algo),
+        "target_params": _agent_params_to_numpy(state.target_params, net, algo),
+        "opt_state": ((), ((state.opt_state.count.detach().cpu().numpy(), mu, nu), ())),
+        "epsilon": state.epsilon.detach().cpu().numpy(),
+        "step": state.step.detach().cpu().numpy(),
+    }

@@ -14,13 +14,13 @@ own parameters, which `init_` draws as flax initialises them.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from swarm_ode_tpu_torch.graphs.temporal import BatchedTemporalGraph, TemporalGraph
+from swarm_ode_tpu_torch.models.init import dense_init_
 from swarm_ode_tpu_torch.ops.odeint import odeint
 from swarm_ode_tpu_torch.ops.sage import HomoSAGE, edge_mean_aggregate, temporal_mean_aggregate
 from swarm_ode_tpu_torch.ops.segment_pallas import segment_plan
@@ -69,20 +69,9 @@ class GraphODE(nn.Module):
         self.decoder = _Decoder(node_dim)
 
     def init_(self, generator: torch.Generator) -> "GraphODE":
-        """Draws every parameter as flax's `Dense` initialises it: the kernel
-        from `lecun_normal` (a normal truncated to two standard deviations,
-        std sqrt(1/fan_in) / 0.87962566 so that the truncated draw has std
-        sqrt(1/fan_in)), the bias zeros. The draws come from `generator`,
-        which lies on the parameters' device. Returns the model."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Linear):
-                    std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-                    nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                          generator=generator)
-                    if m.bias is not None:
-                        m.bias.zero_()
-        return self
+        """Draws every parameter as flax initialises it
+        (models/init.dense_init_). Returns the model."""
+        return dense_init_(self, generator)
 
     def _solve(self, f, x, time_span, method):
         return odeint(f, x, time_span, method=method or self.ode_solver,

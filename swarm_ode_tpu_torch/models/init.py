@@ -1,0 +1,24 @@
+"""flax.linen.Dense's initialisation for torch Linear layers."""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def dense_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draws every Linear layer of `module` as flax's `Dense` initialises it:
+    the kernel from `lecun_normal` (a normal truncated to two standard
+    deviations, std sqrt(1/fan_in) / 0.87962566 so that the truncated draw
+    has std sqrt(1/fan_in)), the bias zeros. The draws come from
+    `generator`, which lies on the parameters' device. Returns the module."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return module

@@ -578,3 +578,170 @@ def test_gym_episode_on_the_card(cuda):
     infos, ret, ep = heur.heuristic_episode(swarm_ode_tpu_torch.make(
         "tarware-tiny-3agvs-2pickers-partialobs-v1"), seed=0)
     assert len(infos) == 500 and sum(i["shelf_deliveries"] for i in infos) > 3
+
+
+def _marl_tree_to(x, device):
+    """Nested dicts, lists, named tuples and dataclasses of tensors, moved."""
+    import dataclasses
+
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _marl_tree_to(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_marl_tree_to(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_marl_tree_to(v, device) for v in x)
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _marl_tree_to(getattr(x, f.name), device)
+                          for f in dataclasses.fields(x)})
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["tarware-tiny-3agvs-2pickers-partialobs-v1", MEDIUM])
+def test_marl_pieces_card_vs_cpu(cuda, env_id):
+    """The MARL path's pieces on the card against the CPU (the twins of
+    test_torch_hetero, _qnets, _coordination, _replay and _learn): graphs,
+    masks_from_feats, busy flags, replay samples and selections identical;
+    Q-values of every network within 1e-5 of the largest |Q|; one IQL and
+    one QMIX learn step (n_step 3, value_transform, coordinated) with the
+    loss within 1e-5, the gradient within 1e-5 of its largest element and
+    Adam on the card from the CPU's gradients within 1e-6."""
+    import dataclasses
+
+    from swarm_ode_tpu_torch.config import EnvConfig
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.layout import build_layout
+    from swarm_ode_tpu_torch.env.observations import compute_valid_action_masks, observe
+    from swarm_ode_tpu_torch.env.state import make_params
+    from swarm_ode_tpu_torch.graphs import hetero
+    from swarm_ode_tpu_torch.rl import coordination, replay
+    from swarm_ode_tpu_torch.rl.dqn import ActNoise, epsilon_greedy, q_values
+    from swarm_ode_tpu_torch.train import run_rl
+    from swarm_ode_tpu_torch.utils.optim import adamw_update, clip_by_global_norm
+
+    cfg = EnvConfig.from_env_id(env_id)
+    lay = build_layout(cfg)
+    pc, pg = make_params(cfg, lay, "cpu"), make_params(cfg, lay, cuda)
+    g = torch.Generator().manual_seed(4)
+    s = step_mod.reset(pc, 4, g)
+    obs = []
+    for t in range(20):
+        m = compute_valid_action_masks(pc, s)
+        s = step_mod.step(pc, s, (torch.rand(m.shape, generator=g) * m).argmax(-1).int(),
+                          generator=g)[0]
+        obs.append(observe(pc, s))
+    obs = torch.cat(obs[4::5])
+    feats = [hetero.split_observation(p, o) for p, o in ((pc, obs), (pg, obs.to(cuda)))]
+    ref, got = ({**vars(hetero.hetero_graph_from_obs(p, o)),
+                 "masks": hetero.masks_from_feats(p, *f),
+                 "busy": coordination.busy_from_feats(*f[:2])}
+                for p, o, f in ((pc, obs, feats[0]), (pg, obs.to(cuda), feats[1])))
+    for k in ref:
+        assert torch.equal(got[k].cpu(), ref[k]), k
+    for net in ("gnn", "gnode", "gnode_comm"):
+        rcfg = run_rl.RLRunConfig(env_id=env_id, net=net, hidden_dim=32, device="cpu")
+        _, nc = run_rl.make_agent(rcfg, pc)
+        nc.init_(torch.Generator().manual_seed(1))
+        _, ng = run_rl.make_agent(dataclasses.replace(rcfg, device="cuda"), pg)
+        ng.load_state_dict(nc.state_dict())
+        with torch.no_grad():
+            qc = q_values(nc, dict(nc.named_parameters()), hetero.hetero_graph_from_obs(pc, obs))
+            qg = q_values(ng, dict(ng.named_parameters()),
+                          hetero.hetero_graph_from_obs(pg, obs.to(cuda)))
+        assert float((qg.cpu() - qc).abs().max()) <= 1e-5 * float(qc.abs().max()), net
+    active, eps = ~ref["busy"], torch.tensor(0.5)
+    for coordinated in (False, True):
+        row = torch.rand(qc.shape, generator=g) if coordinated else step_mod.draw_gumbel(
+            qc.shape, g, "cpu")
+        nz = ActNoise(torch.rand(qc.shape[:2], generator=g), row)
+        want = epsilon_greedy(qc, ref["masks"], eps, nz, pc, coordinated, active)
+        out = epsilon_greedy(qc.to(cuda), ref["masks"].to(cuda), eps.to(cuda),
+                             _marl_tree_to(nz, cuda), pg, coordinated, active.to(cuda))
+        assert torch.equal(out.cpu(), want)
+        out = coordination.coordinated_sample(qc.to(cuda), ref["masks"].to(cuda), pg.num_agvs,
+                                              1 + pg.num_goals, row.to(cuda), active.to(cuda))
+        assert torch.equal(out.cpu(), coordination.coordinated_sample(
+            qc, ref["masks"], pc.num_agvs, 1 + pc.num_goals, row, active))
+
+    base = run_rl.RLRunConfig(env_id=env_id, num_envs=4, hidden_dim=32, buffer_size=64,
+                              batch_size=16, n_step=3, value_transform=True, coordinated=True,
+                              device="cpu")
+    run = run_rl.MarlRun(base)
+    es = run.draws.reset(4)
+    o = observe(pc, es)
+    for t in range(20):  # 80 items: the ring wraps
+        es, o, _ = run.env_step(es, o, t, 0)
+    buf_g = replay.ReplayBuffer(_marl_tree_to(run.buf.storage, cuda), run.buf.ptr, run.buf.size)
+    idx = torch.randint(0, run.buf.size, (16,), generator=g)
+    sampled = replay.sample_nstep(run.buf, 16, 3, 4, idx=idx)
+    sampled_g = replay.sample_nstep(buf_g, 16, 3, 4, idx=idx.to(cuda))
+    for (k, v), (k2, w) in zip(_flat(sampled), _flat(sampled_g)):
+        assert k == k2 and torch.equal(w.cpu(), v), k
+    for algo in ("iql", "qmix"):
+        acfg = dataclasses.replace(base, algo=algo)
+        ac, _ = run_rl.make_agent(acfg, pc)
+        ag, _ = run_rl.make_agent(dataclasses.replace(acfg, device="cuda"), pg)
+        st = ac.init(torch.Generator().manual_seed(2))
+        batch = run_rl.batch_from(sampled, algo, ac.cfg.gamma, 3)
+        nc_, auxc, grc = ac.learn_with_grads(st, batch)
+        ng_, auxg, grg = ag.learn_with_grads(_marl_tree_to(st, cuda), _marl_tree_to(batch, cuda))
+        assert abs(float(auxg["loss"]) - float(auxc["loss"])) <= 1e-5 * abs(float(auxc["loss"]))
+        scale = max(float(v.abs().max()) for v in grc.values())
+        for k in grc:
+            assert float((grg[k].cpu() - grc[k]).abs().max()) <= 1e-5 * scale, k
+        # Adam on the card from the CPU's clipped gradients (from its own,
+        # a gradient near Adam's 1e-8 amplifies rounding; chip_smoke prints
+        # that difference).
+        names = list(st.params)
+        clipped = clip_by_global_norm([grc[k] for k in names], ac.cfg.grad_clip)
+        on_card = [st.params[k].to(cuda).clone() for k in names]
+        adamw_update(on_card, [c.to(cuda) for c in clipped], _marl_tree_to(st.opt_state, cuda),
+                     ac.cfg.lr, 0.0)
+        for p, k in zip(on_card, names):
+            assert float((p.cpu() - nc_.params[k]).abs().max()) <= 1e-6, k
+
+
+def _flat(tree, prefix=""):
+    """[(path, tensor)] of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _flat(v, f"{prefix}{k}/")]
+    return [(prefix, tree)]
+
+
+@pytest.mark.cuda
+def test_run_marl_on_the_card_without_a_host_sync(cuda, tmp_path):
+    """run_marl on the card (its default device) for one stride of 2 tiny
+    envs with host synchronisation forbidden in the episode: K1 once a step,
+    a finite nonzero loss; an eval-only run resuming from the checkpoint
+    restores the agent bit for bit; the trained Q-network served through
+    make_policy_fn(coordinated=True)."""
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.observations import observe
+    from swarm_ode_tpu_torch.serving import make_policy_fn
+    from swarm_ode_tpu_torch.train import run_rl
+
+    cfg = run_rl.RLRunConfig(env_id="tarware-tiny-3agvs-2pickers-partialobs-v1", num_envs=2,
+                             num_episodes=2, hidden_dim=16, batch_size=16, learn_every=5,
+                             checkpoint_dir=str(tmp_path), checkpoint_every=2,
+                             forbid_host_sync=True)
+    bfs_bitpack.LAUNCHES = 0
+    out = run_rl.run_marl(cfg, verbose=False)
+    assert bfs_bitpack.LAUNCHES == 500
+    stats = out["history"][0]
+    assert stats["loss"] != 0.0 and torch.isfinite(torch.tensor(out["losses"][0])).all()
+    assert stats["replan_overflow"] == 0
+    ev = run_rl.run_marl(run_rl.RLRunConfig(**{
+        **vars(cfg), "num_episodes": 0, "eval_episodes": 2, "resume_from": str(tmp_path),
+        "checkpoint_dir": None, "forbid_host_sync": False}), verbose=False)
+    st, rs = out["agent_state"], ev["agent_state"]
+    for k in st.params:
+        assert torch.equal(st.params[k], rs.params[k]) and torch.equal(
+            st.target_params[k], rs.target_params[k])
+    assert torch.equal(st.epsilon, rs.epsilon) and torch.equal(st.step, rs.step)
+    run = run_rl.MarlRun(cfg, agent_state=st)
+    policy = make_policy_fn(run.params, run.net, run_rl.agent_params(st), coordinated=True)
+    s = step_mod.reset(run.params, 3, torch.Generator(device=cuda).manual_seed(0))
+    a = policy(observe(run.params, s))
+    assert a.shape == (3, run.params.num_agents) and a.device.type == "cuda"

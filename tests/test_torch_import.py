@@ -51,6 +51,16 @@ SLICE_MODULES = (
     "swarm_ode_tpu_torch.env.rendering",
     "swarm_ode_tpu_torch.data.hdf5_logger",
     "swarm_ode_tpu_torch.data.collect",
+    "swarm_ode_tpu_torch.graphs.hetero",
+    "swarm_ode_tpu_torch.models.init",
+    "swarm_ode_tpu_torch.models.hetero_gnn",
+    "swarm_ode_tpu_torch.models.gnode",
+    "swarm_ode_tpu_torch.models.qmix",
+    "swarm_ode_tpu_torch.rl.replay",
+    "swarm_ode_tpu_torch.rl.coordination",
+    "swarm_ode_tpu_torch.rl.dqn",
+    "swarm_ode_tpu_torch.rl.qmix",
+    "swarm_ode_tpu_torch.train.run_rl",
 )
 # Modules a fresh interpreter must not load when it imports the port: JAX,
 # the JAX package and its training stack, h5py (needed only to decode or
@@ -164,6 +174,8 @@ def test_device_parameters_default_to_the_card():
         "swarm_ode_tpu_torch.env.env.WarehouseEnv.__init__",
         "swarm_ode_tpu_torch.env.gym_adapter.Warehouse.__init__",
         "swarm_ode_tpu_torch.data.collect.collect_data",
+        "swarm_ode_tpu_torch.convert.flax_params_to_state_dict",
+        "swarm_ode_tpu_torch.convert.agent_state_from_numpy",
     }
     assert {k for k, v in found.items() if v == "cuda"} >= entry_points
 
@@ -177,3 +189,17 @@ def test_make_params_without_a_card_raises():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             make_params(cfg)
+
+
+def test_marl_runs_on_the_card_by_default():
+    """RLRunConfig (and so run_marl and its CLI) defaults to the card; without
+    one, run_marl raises rather than falling back to the CPU."""
+    from swarm_ode_tpu_torch.train import run_rl
+
+    cfg = run_rl.RLRunConfig(env_id="tarware-tiny-3agvs-2pickers-partialobs-v1",
+                             num_episodes=0, hidden_dim=8)
+    assert cfg.device == "cuda"
+    assert inspect.signature(run_rl.main).parameters["argv"].default is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="card"):
+            run_rl.run_marl(cfg, verbose=False)

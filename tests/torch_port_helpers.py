@@ -238,3 +238,123 @@ def served_windows():
         w = pt.TemporalWindow(torch.where(keep[:, None], pushed.obs, w.obs),
                               torch.where(k < counts, pushed.count, w.count))
     return w
+
+
+def jax_trajectory(jparams, jlayout, B: int, T: int, seed: int):
+    """Every step's states of a JAX heuristic rollout of B envs."""
+    policy, step = jax_policy_fn(jparams, jlayout), jax_step_fn(jparams)
+    js, jh = jax_reset_batch(jparams, B, seed), jax_heuristic_init(jparams, B)
+    states = []
+    for _ in range(T):
+        ja, jh = policy(js, jh)
+        js, _, _, _ = step(js, ja)
+        states.append(js)
+    return states
+
+
+def jax_observations(jparams, jlayout, B: int, T: int, seed: int, every: int = 1) -> np.ndarray:
+    """(K, B, A, obs_len) JAX observations of every `every`-th state of a
+    heuristic rollout (the reset state first)."""
+    from swarm_ode_tpu.env.observations import observe as jobserve
+
+    obs = jax.jit(jax.vmap(lambda s: jobserve(jparams, s)))
+    states = [jax_reset_batch(jparams, B, seed)] + jax_trajectory(jparams, jlayout, B, T, seed)
+    return np.stack([np.asarray(obs(s)) for s in states[::every]])
+
+
+def jax_agent(cfg, jparams):
+    """The JAX IQL or QMIX agent (and its network) that run_marl builds for
+    `cfg` (a port RLRunConfig; its fields carry over), as
+    swarm_ode_tpu/train/run_rl.py builds them."""
+    from swarm_ode_tpu.rl.dqn import DQNConfig, IQLAgent
+    from swarm_ode_tpu.rl.qmix import QMIXAgent, QMIXConfig
+    from swarm_ode_tpu.train import run_rl as jrun
+
+    known = {f.name for f in dataclasses.fields(jrun.RLRunConfig)}
+    jcfg = jrun.RLRunConfig(**{k: v for k, v in dataclasses.asdict(cfg).items() if k in known})
+    scale = 1.0 / float(max(jparams.grid_h, jparams.grid_w))
+    net = jrun._make_network(jcfg, jparams.num_actions, jparams.num_agvs,
+                             jparams.num_pickers, coord_scale=scale)
+    over = {k: getattr(cfg, k) for k in ("gamma", "epsilon_decay", "epsilon_min",
+                                         "epsilon_start") if getattr(cfg, k) is not None}
+    if cfg.algo == "iql":
+        return IQLAgent(net, jparams, DQNConfig(batch_size=cfg.batch_size,
+                                                coordinated=cfg.coordinated, **over)), net
+    gs_dim = 7 * jparams.num_agvs + 4 * jparams.num_pickers + 2 * jparams.num_racks
+    return QMIXAgent(net, jparams, gs_dim, QMIXConfig(
+        batch_size=cfg.batch_size, value_transform=cfg.value_transform, td_clip=cfg.td_clip,
+        huber_delta=cfg.huber_delta, target_tau=cfg.target_tau, coordinated=cfg.coordinated,
+        **over)), net
+
+
+def jax_example_graph(jparams, key):
+    """run_marl's example graph: one reset's observation as a hetero graph."""
+    from swarm_ode_tpu.env.observations import observe as jobserve
+    from swarm_ode_tpu.graphs.hetero import hetero_graph_from_obs
+
+    return hetero_graph_from_obs(jparams, jobserve(jparams, jstep.reset(jparams, key)))
+
+
+def port_agent_state(jstate, port_agent, device="cpu"):
+    """A JAX agent state carried into the port, in the port agent's
+    parameter order."""
+    from swarm_ode_tpu_torch.convert import agent_state_from_numpy
+    from swarm_ode_tpu_torch.rl.dqn import module_params
+
+    names = list(module_params(port_agent.net))
+    if hasattr(port_agent, "mixer"):
+        names = [f"q.{n}" for n in names] + [f"mixer.{n}" for n in module_params(port_agent.mixer)]
+    return agent_state_from_numpy(jax.tree.map(np.asarray, jstate), names, device)
+
+
+class JaxMarlDraws:
+    """The draws of JAX's run_marl (swarm_ode_tpu/train/run_rl.py), rebuilt
+    from its keys in its split order, in the form the port's run_marl takes
+    (train/run_rl.MarlDraws): the resets of each stride (key, kr =
+    split(key); reset per split(kr, B)), each step's env draws (from the
+    envs' own state keys), each act's draws (kas = split(key, B + 1), then
+    k1, k2 = split(ka) per env), each learn block's sample indices (key, ks
+    = split(key); randint(ks, (batch,), 0, max(size, 1))), and an
+    evaluation probe's draws (key, ke = split(key))."""
+
+    def __init__(self, jparams, key, coordinated: bool):
+        self.jparams, self.key, self.coordinated = jparams, key, coordinated
+        self.env_keys = None
+        A, n = jparams.num_agents, jparams.num_actions
+
+        def one(ka):
+            k1, k2 = jax.random.split(ka)
+            if coordinated:
+                return jax.random.uniform(k1, (A,)), jax.random.uniform(k2, (A, n))
+            return jax.random.uniform(k2, (A,)), jax.random.gumbel(k1, (A, n))
+
+        self._act = jax.jit(jax.vmap(one))
+
+    def reset(self, B: int):
+        from swarm_ode_tpu_torch.convert import env_state_from_numpy
+
+        self.key, kr = jax.random.split(self.key)
+        js = jax.jit(jax.vmap(lambda k: jstep.reset(self.jparams, k)))(jax.random.split(kr, B))
+        self.env_keys = js.key
+        return env_state_from_numpy(fields(js), device="cpu")
+
+    def step(self, B: int) -> StepNoise:
+        noise, self.env_keys = jax_noise(self.jparams, self.env_keys)
+        return noise
+
+    def act(self, B: int):
+        from swarm_ode_tpu_torch.rl.dqn import ActNoise
+
+        kas = jax.random.split(self.key, B + 1)
+        self.key = kas[0]
+        u, row = self._act(kas[1:])
+        return ActNoise(torch.from_numpy(np.array(u)), torch.from_numpy(np.array(row)))
+
+    def sample(self, size: int, batch_size: int) -> torch.Tensor:
+        self.key, ks = jax.random.split(self.key)
+        idx = jax.random.randint(ks, (batch_size,), 0, max(size, 1))
+        return torch.from_numpy(np.array(idx))
+
+    def split(self) -> "JaxMarlDraws":
+        self.key, ke = jax.random.split(self.key)
+        return JaxMarlDraws(self.jparams, ke, self.coordinated)
