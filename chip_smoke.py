@@ -111,7 +111,29 @@ Phases, one line of output each (any failure exits non-zero):
      busy share of a traced block; the greedy evaluation (8 envs x 500
      steps) resuming from the run's checkpoint, the agent restored bit for
      bit; make_policy_fn(coordinated=True) serving the trained Q-network
-     over one medium episode; K1's launches on each path.
+     over one medium episode; K1's launches on each path;
+ 14. learning from the dispatcher and on-policy MARL, at the width of
+     experiments/medium_bc.py, medium_dagger.py, medium_mappo.py and
+     medium_coma_curve.py (net gnode, hidden 64, 8 medium envs of 500
+     steps): 8 expert episodes recorded in memory by collect_batch (the
+     card's host has no h5py); train_bc on them for 2 epochs at batch 64,
+     the loss finite and falling, the best epoch's checkpoint read back bit
+     for bit; one DAgger round (collect_dagger over 8 episodes at beta 0.25,
+     coordinated, then 1 epoch on the aggregate from the clone);
+     evaluate_policy over 8 episodes through the claim auction; run_mappo
+     for one stride (coordinated, ppo_epochs 2, minibatch 128) warm-started
+     from the clone, the actor before its first update equal to the
+     checkpoint bit for bit, the collection with host synchronisation
+     forbidden, then its greedy probe; run_marl(algo="coma", coordinated)
+     for one stride (batch 64, buffer 50,000, 8 updates), the episode with
+     host synchronisation forbidden; a QMIX run built with init_q_from the
+     clone, its Q-network and targets the checkpoint's bit for bit; card
+     against CPU on one batch taken from the card: a COMA update (both
+     losses, both gradients), a MAPPO minibatch step (loss, gradients) and a
+     BC batch (loss, gradient) within the MARL tolerances, Adam on the card
+     from the CPU's gradients within 1e-6; counts zeroed before and read
+     after each path: K1 once a step, overflow 0; steps/s, ms per update,
+     ms per epoch, peak memory and the MAPPO collection's busy share.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `bound_ms` is the least time the
@@ -204,6 +226,19 @@ OVERLAP = "same-layer agents overlap without fixing-clash"
 MARL_ENVS, MARL_HIDDEN, MARL_BUFFER, MARL_BATCH = 8, 64, 100_000, 64
 MARL_Q_RTOL, MARL_LOSS_RTOL, MARL_GRAD_RTOL, MARL_OPT_ATOL = 1e-5, 1e-5, 1e-5, 1e-6
 MARL_TRACE_STEPS, MARL_LEARN_REPS = 5, 20
+# Learning from the dispatcher and on-policy MARL (experiments/medium_bc.py,
+# medium_dagger.py, medium_mappo.py, medium_coma_curve.py at their width):
+# 8 medium envs, net gnode, hidden 64; BC 2 epochs at batch 64; one DAgger
+# round at beta 0.25 then 1 epoch; MAPPO ppo_epochs 2, minibatch 128; COMA
+# batch 64, buffer 50,000, 8 updates a stride, learn_every 4. The MAPPO
+# collection's busy share from a traced collection of LFE_TRACE_STEPS steps.
+LFE_ENVS, LFE_HIDDEN, BC_BATCH, BC_EPOCHS, DAGGER_BETA = 8, 64, 64, 2, 0.25
+MAPPO_EPOCHS, MAPPO_MINIBATCH = 2, 128
+COMA_BATCH, COMA_BUFFER, COMA_UPDATES, COMA_LEARN_EVERY = 64, 50_000, 8, 4
+LFE_TRACE_STEPS = 5
+# Card against CPU for one MAPPO minibatch: a collection of this many steps
+# (8 envs: 160 samples, of which the minibatch takes 128).
+MAPPO_CHECK_STEPS = 20
 
 
 def say(phase: str, msg: str) -> None:
@@ -2119,6 +2154,372 @@ def phase_marl(layout_cache, smi):
     return launches, out
 
 
+def _grad_err(got, ref, terms=None) -> float:
+    """The largest difference of two gradient dicts over ref's largest
+    element, or over the largest element of `terms` where that is larger:
+    the gradient of the terms a loss cancels (a squared residual cancels
+    its prediction's square), whose rounding the difference carries."""
+    scale = max(float(v.abs().max()) for v in ref.values())
+    if terms is not None:
+        scale = max(scale, max(float(v.abs().max()) for v in terms.values()))
+    return max(_max_err(got[k], ref[k]) for k in ref) / (scale or 1.0)
+
+
+def _rel(got, ref) -> float:
+    return abs(float(got) - float(ref)) / (abs(float(ref)) or 1.0)
+
+
+def _adam_from_cpu_grads(params, grads_cpu, opt, lr, clip, dev):
+    """The parameters after one Adam step on the card from the CPU's
+    gradients (clipped to `clip` when given): Adam's arithmetic alone."""
+    from swarm_ode_tpu_torch.rl.dqn import adam_step
+
+    new, _ = adam_step(_tree_to(params, dev), _tree_to(grads_cpu, dev), _tree_to(opt, dev), lr,
+                       clip)
+    return new
+
+
+def coma_card_vs_cpu(pp, pp_cpu, ccfg, cres):
+    """One COMA update of the trained state on a batch of the stride's
+    newest transitions, card against CPU (see learn_card_vs_cpu)."""
+    import dataclasses as dc
+
+    import torch
+
+    from swarm_ode_tpu_torch.rl import replay
+    from swarm_ode_tpu_torch.rl.dqn import value_and_grad
+    from swarm_ode_tpu_torch.train import run_rl
+
+    dev = pp.device
+    window = pp.max_steps * ccfg.num_envs
+    off = torch.arange(1, COMA_BATCH + 1, device=dev) * 37 % window + 1
+    sampled = replay.sample_recent(cres["buffer"], COMA_BATCH, window, off=off)
+    batch = {"obs_feats": sampled["obs_feats"], "global_state": sampled["global_state"],
+             "actions": sampled["actions"], "rewards": sampled["rewards"].mean(-1),
+             "next_global_state": sampled["next_global_state"], "dones": sampled["done"]}
+    agent_g, _ = run_rl.make_agent(ccfg, pp)
+    agent_c, _ = run_rl.make_agent(dc.replace(ccfg, device="cpu"), pp_cpu)
+    st, batch_c = cres["agent_state"], _tree_to(batch, "cpu")
+    st_c = _tree_to(st, "cpu")
+    new_c, _, gr_c = agent_c.update_with_grads(st_c, batch_c)
+    closs_c, q_c, _ = agent_c.critic_grads(st_c, batch_c)
+    # The TD loss (mean Q - target)^2 cancels mean Q's square.
+    _, _, (terms,) = value_and_grad(lambda cp: (agent_c.q(cp, batch_c["global_state"],
+                                                          batch_c["actions"]).mean(1) ** 2).mean(),
+                                    st_c.critic_params)
+    adv_c = agent_c.advantage(st_c, batch_c, q_c)
+    aloss_c, _ = agent_c.actor_grads(st_c, batch_c, adv_c)
+    closs_g, q_g, cgr_g = agent_g.critic_grads(st, batch)
+    adv_g = agent_g.advantage(st, batch, q_g)
+    aloss_g, agr_g = agent_g.actor_grads(st, batch, adv_c.to(dev))
+    gr_g = {"critic": cgr_g, "actor": agr_g}
+    with torch.no_grad():
+        td = batch_c["rewards"] + agent_c.cfg.gamma * agent_c.q(
+            st_c.critic_params, batch_c["next_global_state"], batch_c["actions"]).mean(1) * (
+            1.0 - batch_c["dones"].float())
+    closs_terms = float((q_c.mean(1) ** 2 + td ** 2).mean())
+    errs = {"critic_loss (of its terms)": abs(float(closs_g) - float(closs_c)) / closs_terms,
+            "actor_loss": _rel(aloss_g, aloss_c),
+            "advantage (of the largest |Q|)": _max_err(adv_g, adv_c) / float(q_c.abs().max())}
+    for part in ("critic", "actor"):
+        errs[f"{part} gradient"] = _grad_err(gr_g[part], gr_c[part],
+                                             terms if part == "critic" else None)
+        lr = agent_c.cfg.lr_critic if part == "critic" else agent_c.cfg.lr_actor
+        params, opt = (st.critic_params, st.critic_opt) if part == "critic" else (
+            st.actor_params, st.actor_opt)
+        on_card = _adam_from_cpu_grads(params, gr_c[part], opt, lr, None, dev)
+        want = new_c.critic_params if part == "critic" else new_c.actor_params
+        errs[f"{part} Adam"] = max(_max_err(on_card[k], want[k]) for k in want)
+    return errs
+
+
+def mappo_card_vs_cpu(mappo_run):
+    """One MAPPO minibatch (the same rows) of a short collection on the card
+    under the run's parameters, card against CPU (see learn_card_vs_cpu)."""
+    import dataclasses as dc
+
+    import torch
+
+    from swarm_ode_tpu_torch.rl import ppo
+    from swarm_ode_tpu_torch.rl.dqn import adam_step, value_and_grad
+
+    dev = mappo_run.device
+    short = ppo.MappoRun(dc.replace(mappo_run.cfg, steps_override=MAPPO_CHECK_STEPS,
+                                    init_from=None, forbid_host_sync=False))
+    short.actor_params, short.critic_params = mappo_run.actor_params, mappo_run.critic_params
+    traj = short.collect()
+    cpu_run = ppo.MappoRun(dc.replace(short.cfg, device="cpu"))
+    cpu_run.actor_params = _tree_to(mappo_run.actor_params, "cpu")
+    cpu_run.critic_params = _tree_to(mappo_run.critic_params, "cpu")
+    N = traj["reward"].numel()
+    idx = torch.randperm(N, generator=torch.Generator().manual_seed(3))[:MAPPO_MINIBATCH]
+    mb = {}
+    for side, run, d in (("card", short, dev), ("cpu", cpu_run, "cpu")):
+        data = {k: v.flatten(0, 1).to(d) for k, v in traj.items()
+                if k not in ("deliv", "overflow")}
+        adv = (data["adv"] - data["adv"].mean()) / (data["adv"].std(correction=0) + 1e-8)
+        mb[side] = value_and_grad(lambda a, c: run.loss(a, c, data, adv, idx.to(d)),
+                                  run.actor_params, run.critic_params, has_aux=True)
+    (tot_g, aux_g, (ag_g, cg_g)), (tot_c, aux_c, (ag_c, cg_c)) = mb["card"], mb["cpu"]
+    cfg = mappo_run.cfg
+    # The loss's terms: the policy term averages |advantage| x ratio (~1)
+    # terms of either sign, the value term cancels v's square.
+    adv_terms = float(adv[idx].abs().mean())
+    pg_err = abs(float(aux_g[0]) - float(aux_c[0])) / adv_terms
+    loss_err = abs(float(tot_g) - float(tot_c)) / (
+        adv_terms + cfg.value_coef * float(aux_c[1]) + cfg.entropy_coef * float(aux_c[2]))
+    gs_b = data["gs"][idx]
+    _, _, (terms,) = value_and_grad(
+        lambda c: cfg.value_coef * (cpu_run.value(c, gs_b) ** 2).mean(), cpu_run.critic_params)
+    with torch.no_grad():
+        v_terms = float((cpu_run.value(cpu_run.critic_params, gs_b) ** 2
+                         + data["ret"][idx] ** 2).mean())
+    on_card = _adam_from_cpu_grads(mappo_run.actor_params, ag_c, short.actor_opt, cfg.lr,
+                                   cfg.max_grad_norm, dev)
+    want, _ = adam_step(cpu_run.actor_params, ag_c, cpu_run.actor_opt, cfg.lr, cfg.max_grad_norm)
+    return {"loss (of its terms)": loss_err, "pg_loss (of |advantage|)": pg_err,
+            "v_loss (of its terms)": abs(float(aux_g[1]) - float(aux_c[1])) / v_terms,
+            "entropy": _rel(aux_g[2], aux_c[2]),
+            "actor gradient": _grad_err(ag_g, ag_c),
+            "critic gradient": _grad_err(cg_g, cg_c, terms),
+            "actor Adam": max(_max_err(on_card[k], want[k]) for k in want)}
+
+
+def bc_card_vs_cpu(pp, pp_cpu, bc_net, bc_params, arrays):
+    """One BC batch (the dataset's first rows), card against CPU: loss and
+    gradient (see learn_card_vs_cpu)."""
+    import torch
+
+    from swarm_ode_tpu_torch.rl.dqn import value_and_grad
+    from swarm_ode_tpu_torch.train.train_bc import batch_loss
+
+    obs = torch.from_numpy(arrays[0][:BC_BATCH]).float()
+    act, idle = torch.from_numpy(arrays[1][:BC_BATCH]), torch.from_numpy(~arrays[2][:BC_BATCH])
+    out = {}
+    for side, p in (("card", pp), ("cpu", pp_cpu)):
+        d = p.device
+        net = bc_net.to(d)
+        out[side] = value_and_grad(
+            lambda q: batch_loss(net, q, p, obs.to(d), act.to(d), idle.to(d)),
+            _tree_to(bc_params, d), has_aux=True)
+    bc_net.to(pp.device)
+    return {"loss": _rel(out["card"][0], out["cpu"][0]),
+            "gradient": _grad_err(out["card"][2][0], out["cpu"][2][0])}
+
+
+def learn_card_vs_cpu(pp, lay, cfg_env, coma, mappo_run, bc_net, bc_params, arrays):
+    """One COMA update, one MAPPO minibatch step and one BC batch, card
+    against CPU on one batch taken from the card and copied to the CPU:
+    losses within MARL_LOSS_RTOL, gradients within MARL_GRAD_RTOL of their
+    largest element, Adam on the card from the CPU's gradients within
+    MARL_OPT_ATOL of the CPU's parameters. Where a quantity cancels larger
+    terms, it is held against their size, which sets its rounding: COMA's
+    advantages are differences of Q-values (the counterfactual baseline
+    nearly cancels Q), held within MARL_Q_RTOL of the largest |Q|, and the
+    actors' step is held from the CPU's advantages, as Adam is from the
+    CPU's gradients; MAPPO's policy term averages terms of +-|advantage|
+    (over the minibatch of a normalised stride it nearly vanishes), held
+    against their mean magnitude, and its loss against the sum of its
+    terms'; a squared residual (both critics' losses) against the mean of
+    its two squares, and its gradient against the gradient of its
+    prediction's square where that is larger.
+    Every error is printed before any is held. Returns the errors."""
+    from swarm_ode_tpu_torch.env.state import make_params
+
+    pp_cpu = make_params(cfg_env, lay, "cpu")
+    errs = {"coma": coma_card_vs_cpu(pp, pp_cpu, *coma), "mappo": mappo_card_vs_cpu(mappo_run),
+            "bc": bc_card_vs_cpu(pp, pp_cpu, bc_net, bc_params, arrays)}
+    say("learn", "card vs CPU (TF32 off) on one batch from the card: " + "; ".join(
+        f"{path} " + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) for path, e in errs.items()))
+    for path, e in errs.items():
+        for k, v in e.items():
+            tol = MARL_OPT_ATOL if "Adam" in k else MARL_GRAD_RTOL if "gradient" in k else (
+                MARL_Q_RTOL if "advantage" in k else MARL_LOSS_RTOL)
+            if not v <= tol:
+                fail("learn", f"{path} card vs CPU: {k} differs by {v:.2e} > {tol:.0e}")
+    return errs
+
+
+def phase_learn_from_expert(layout_cache, smi):
+    """Learning from the dispatcher and on-policy MARL on the card (see the
+    docstring's phase 14). Returns (K1 launches by path, the numbers
+    printed)."""
+    import dataclasses as dc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from swarm_ode_tpu_torch.data.collect import collect_batch
+    from swarm_ode_tpu_torch.ops import bfs_bitpack
+    from swarm_ode_tpu_torch.rl import ppo
+    from swarm_ode_tpu_torch.train import run_rl
+    from swarm_ode_tpu_torch.train import train_bc as bc
+    from swarm_ode_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg_env, lay, pp = layout_cache["medium"]
+    E, T = LFE_ENVS, cfg_env.max_steps
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    launches, out = {}, {}
+
+    def counted(what, fn):
+        """fn() with K1's count zeroed before and read after, synchronised;
+        (its result, its seconds)."""
+        torch.cuda.synchronize()
+        bfs_bitpack.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        launches[what] = bfs_bitpack.LAUNCHES
+        if launches[what] != T:
+            fail("learn", f"{what}: K1 launched {launches[what]} times in {T} steps")
+        return res, time.perf_counter() - t0
+
+    # 1. The dispatcher's decisions, in memory.
+    traj, dstats = collect_batch(pp, lay, E, T, 100, gen)
+    flat = lambda k: traj[k].reshape((E * T,) + traj[k].shape[2:])
+    arrays = (flat("observations").astype(np.float16), flat("actions").astype(np.int32),
+              flat("agent_busy"), np.repeat(np.arange(E, dtype=np.int32), T))
+    del traj
+    with tempfile.TemporaryDirectory() as tmp:
+        bc_dir = f"{tmp}/bc"
+        # 2. Behaviour cloning.
+        bcfg = bc.BCConfig(env_id=MEDIUM, net="gnode", hidden_dim=LFE_HIDDEN, epochs=BC_EPOCHS,
+                           batch_size=BC_BATCH, seed=0, checkpoint_dir=bc_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clone = bc.train_bc(bcfg, verbose=False, arrays=arrays)
+        torch.cuda.synchronize()
+        bc_s = time.perf_counter() - t0
+        hist = clone["history"]
+        tr = [h["train_loss"] for h in hist]
+        if not (np.isfinite([[h[k] for k in h] for h in hist]).all() and tr[-1] < tr[0]):
+            fail("learn", f"behaviour cloning: train losses {tr} (finite and falling?)")
+        saved = CheckpointManager(bc_dir).restore({"q_params": clone["params"]})
+        if saved is None or not all(torch.equal(saved["q_params"][k], v)
+                                    for k, v in clone["params"].items()):
+            fail("learn", "the behaviour-cloning checkpoint does not hold the best parameters")
+        bc_epoch_ms = 1e3 * float(np.mean([h["seconds"] for h in hist]))
+        net = clone["net"]
+        # 3. One DAgger round.
+        (o, a, b, dst), dag_s = counted("dagger collection", lambda: bc.collect_dagger(
+            pp, lay, net, clone["params"], E, gen, beta=DAGGER_BETA, coordinated=True,
+            with_stats=True))
+        if dst["replan_overflow"] or o.shape != (T * E,) + arrays[0].shape[1:] or (
+                o.dtype != np.float16) or not np.isfinite(o.astype(np.float32)).all():
+            fail("learn", f"DAgger collection: overflow {dst['replan_overflow']}, observations "
+                 f"{o.shape} {o.dtype}")
+        agg = (np.concatenate([arrays[0], o]), np.concatenate([arrays[1], a]),
+               np.concatenate([arrays[2], b]),
+               np.concatenate([arrays[3], E + np.tile(np.arange(E, dtype=np.int32), T)]))
+        t0 = time.perf_counter()
+        dagger = bc.train_bc(dc.replace(bcfg, epochs=1, checkpoint_dir=None), verbose=False,
+                             arrays=agg, init_params=clone["params"])
+        dagger_train_s = time.perf_counter() - t0
+        if not np.isfinite(dagger["history"][0]["train_loss"]):
+            fail("learn", f"DAgger retraining loss {dagger['history'][0]['train_loss']}")
+        # 4. Evaluation of the DAgger clone through the claim auction.
+        ev, eval_s = counted("clone evaluation", lambda: bc.evaluate_policy(
+            pp, net, dagger["params"], E, gen, coordinated=True, verbose=False))
+        if ev["replan_overflow"]:
+            fail("learn", f"evaluation: overflow {ev['replan_overflow']}")
+        # 5. MAPPO warm-started from the clone.
+        mcfg = ppo.MAPPOConfig(env_id=MEDIUM, net="gnode", hidden_dim=LFE_HIDDEN, num_envs=E,
+                               num_strides=1, ppo_epochs=MAPPO_EPOCHS, minibatch=MAPPO_MINIBATCH,
+                               coordinated=True, init_from=bc_dir, seed=0,
+                               forbid_host_sync=True)
+        mrun = ppo.MappoRun(mcfg)
+        if not all(torch.equal(mrun.actor_params[k], v) for k, v in saved["q_params"].items()):
+            fail("learn", "MAPPO's actor before its first update differs from the checkpoint")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mres, mappo_s = counted("mappo collection", lambda: ppo.run_mappo(
+            mcfg, verbose=False, run=mrun))
+        mappo_peak = torch.cuda.max_memory_allocated() / 2**30
+        mh = mres["history"][0]
+        if mh["replan_overflow"] or not np.isfinite(
+                [mh[k] for k in ("pg_loss", "v_loss", "entropy", "return")]).all():
+            fail("learn", f"MAPPO stride: {mh}")
+        probe, probe_s = counted("mappo greedy probe", lambda: mrun.eval_probe(
+            mrun.draws.split()))
+        mappo_rate = E * T / mh["collect_seconds"]
+        n_mb = E * T // MAPPO_MINIBATCH
+        update_ms = 1e3 * mh["update_seconds"] / (MAPPO_EPOCHS * n_mb)
+        short = ppo.MappoRun(dc.replace(mcfg, steps_override=LFE_TRACE_STEPS, init_from=None,
+                                        forbid_host_sync=False))
+        short.actor_params, short.critic_params = mrun.actor_params, mrun.critic_params
+        events, busy = busy_per_call(short.collect, 1)
+        busy_step, wall_step = busy / LFE_TRACE_STEPS, 1e3 * mh["collect_seconds"] / T
+        # 6. COMA, coordinated.
+        ccfg = run_rl.RLRunConfig(
+            env_id=MEDIUM, algo="coma", net="gnode", num_envs=E, num_episodes=E,
+            hidden_dim=LFE_HIDDEN, buffer_size=COMA_BUFFER, batch_size=COMA_BATCH,
+            learn_every=COMA_LEARN_EVERY, coma_updates=COMA_UPDATES, coordinated=True, seed=0,
+            forbid_host_sync=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cres, coma_s = counted("coma stride", lambda: run_rl.run_marl(ccfg, verbose=False))
+        coma_peak = torch.cuda.max_memory_allocated() / 2**30
+        ch = cres["history"][0]
+        if ch["replan_overflow"] or not np.isfinite([ch["critic_loss"], ch["actor_loss"]]).all():
+            fail("learn", f"COMA stride: overflow {ch['replan_overflow']}, critic loss "
+                 f"{ch['critic_loss']}, actor loss {ch['actor_loss']}")
+        if int(cres["agent_state"].step) != COMA_UPDATES:
+            fail("learn", f"COMA took {int(cres['agent_state'].step)} updates")
+        coma_rate = E * T / ch["episode_seconds"]
+        coma_update_ms = 1e3 * ch["coma_update_seconds"] / COMA_UPDATES
+        # 7. QMIX built with init_q_from the clone.
+        qrun = run_rl.MarlRun(run_rl.RLRunConfig(
+            env_id=MEDIUM, algo="qmix", net="gnode", num_envs=E, hidden_dim=LFE_HIDDEN,
+            buffer_size=1024, init_q_from=bc_dir))
+        for k, v in saved["q_params"].items():
+            if not (torch.equal(qrun.astate.params[f"q.{k}"], v)
+                    and torch.equal(qrun.astate.target_params[f"q.{k}"], v)):
+                fail("learn", f"init_q_from: q.{k} (or its target) differs from the checkpoint")
+        del qrun
+    say("learn", f"medium, {E} envs x {T} steps, net gnode, hidden {LFE_HIDDEN}: behaviour "
+        f"cloning on {E} expert episodes ({arrays[0].shape[0]} rows, in memory) for "
+        f"{BC_EPOCHS} epochs at batch {BC_BATCH}: {bc_epoch_ms:.1f} ms an epoch "
+        f"({bc_s:.2f} s with set-up), train loss {tr[0]:.4f} -> {tr[-1]:.4f}, val loss "
+        f"{hist[-1]['val_loss']:.4f}, val accuracy {hist[-1]['val_acc']:.3f}, checkpoint read "
+        f"back bit for bit; DAgger collection (beta {DAGGER_BETA}, coordinated) "
+        f"{E * T / dag_s:.1f} env steps/s ({dag_s:.2f} s), {dst['deliveries']:.2f} deliveries "
+        f"an episode, then 1 epoch on {agg[0].shape[0]} rows in {dagger_train_s:.2f} s; "
+        f"evaluate_policy (coordinated) {E * T / eval_s:.1f} env steps/s, deliveries "
+        f"{ev['deliveries']:.2f} an episode (the dispatcher's "
+        f"{float(np.mean(dstats['deliveries'])):.2f}); on {smi}")
+    say("learn", f"MAPPO, one stride warm-started from the clone (actor equal to the "
+        f"checkpoint bit for bit), coordinated, collection with host synchronisation "
+        f"forbidden: {mappo_rate:.1f} env steps/s collected ({1e3 * mh['collect_seconds']:.1f} "
+        f"ms), {update_ms:.3f} ms per minibatch step ({MAPPO_EPOCHS} epochs x {n_mb} of "
+        f"{MAPPO_MINIBATCH}; {mh['update_seconds']:.2f} s), stride {mappo_s:.2f} s with "
+        f"set-up, peak memory {mappo_peak:.3f} GiB; pg {mh['pg_loss']:.5f}, v {mh['v_loss']:.5f}, "
+        f"entropy {mh['entropy']:.4f}, deliveries {mh['deliveries']:.2f} an episode; greedy "
+        f"probe {E * T / probe_s:.1f} env steps/s, deliveries {probe[1]:.2f}; device busy "
+        f"{busy_step:.3f} ms a step in a traced collection of {LFE_TRACE_STEPS} steps "
+        f"({events / LFE_TRACE_STEPS:.1f} device events a step): busy share "
+        f"{busy_step / wall_step:.3f}")
+    say("learn", f"COMA, one coordinated stride (batch {COMA_BATCH}, buffer {COMA_BUFFER}, "
+        f"{COMA_UPDATES} updates), the episode with host synchronisation forbidden: "
+        f"{coma_rate:.1f} env steps/s in the episode ({ch['episode_seconds']:.2f} s), "
+        f"{coma_update_ms:.1f} ms per update, stride {coma_s:.2f} s with set-up, peak memory "
+        f"{coma_peak:.3f} GiB; critic loss {ch['critic_loss']:.5f}, actor loss "
+        f"{ch['actor_loss']:.5f}, deliveries {ch['deliveries']} an env; QMIX built with "
+        f"init_q_from the clone: Q-network and targets equal to the checkpoint bit for bit")
+    # 8. Card against CPU.
+    errs = learn_card_vs_cpu(pp, lay, cfg_env, (ccfg, cres), mrun, net, clone["params"], arrays)
+    say("learn", f"K1 launches by path {launches}, overflow 0; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out.update(bc_epoch_ms=bc_epoch_ms, dagger_steps_per_sec=E * T / dag_s,
+               eval_deliveries=ev["deliveries"], mappo_steps_per_sec=mappo_rate,
+               mappo_update_ms=update_ms, mappo_peak_gib=mappo_peak,
+               mappo_busy_share=busy_step / wall_step, coma_steps_per_sec=coma_rate,
+               coma_update_ms=coma_update_ms, coma_stride_s=coma_s, coma_peak_gib=coma_peak,
+               card_vs_cpu=errs)
+    return launches, out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2141,6 +2542,7 @@ def main() -> None:
     k1_datagen, _ = phase_datagen(layouts, smi)
     k1_env_api = phase_env_api(layouts)
     k1_marl, _ = phase_marl(layouts, smi)
+    k1_learn, _ = phase_learn_from_expert(layouts, smi)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
     def entry(k, name, replaces, setting):
@@ -2160,7 +2562,8 @@ def main() -> None:
     # K1's launches on the expert-data paths, each counted alone.
     k1["launches_by_path"] = {
         "main path rollout": by_setting["bitpack32"]["K1"], "datagen": k1_datagen,
-        "stochastic expert (card vs CPU)": k1_stochastic, **k1_env_api, **k1_marl}
+        "stochastic expert (card vs CPU)": k1_stochastic, **k1_env_api, **k1_marl,
+        **k1_learn}
 
     planned, narrow = k4[435], k4[HIDDEN]
     record = {"kernels": [

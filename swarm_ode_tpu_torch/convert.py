@@ -14,7 +14,11 @@ optax's (clip_by_global_norm, adamw) chain state as numpy
 the IQL / QMIX agent states (rl/dqn.DQNState: parameters, target
 parameters, Adam's state, epsilon, step) convert the same way
 (`flax_params_to_state_dict`, `qnet_params_to_numpy`,
-`agent_state_from_numpy`, `agent_state_to_numpy`).
+`agent_state_from_numpy`, `agent_state_to_numpy`). COMA's actors (the
+encoder and the two heads), its critic and its whole state
+(`coma_state_from_numpy`, `coma_state_to_numpy`), MAPPO's actor and
+`ValueNet` critic (`mappo_params_from_numpy`) and optax's Adam state in
+either layout (`adam_state_from_numpy`) convert the same way.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from swarm_ode_tpu_torch.env.state import EnvParams, EnvState
 from swarm_ode_tpu_torch.policies.heuristic import HeuristicState
+from swarm_ode_tpu_torch.rl.coma import COMAState
 from swarm_ode_tpu_torch.rl.dqn import DQNState
 from swarm_ode_tpu_torch.utils.optim import AdamWState
 
@@ -260,3 +265,77 @@ def agent_state_to_numpy(state, net: str, algo: str) -> dict:
         "epsilon": state.epsilon.detach().cpu().numpy(),
         "step": state.step.detach().cpu().numpy(),
     }
+
+
+def _adam_leaves(opt_state):
+    """optax's ScaleByAdamState (count, mu, nu) inside an adam or
+    chain(clip_by_global_norm, adam) state as numpy: the first node with
+    count, mu and nu, depth first."""
+    if hasattr(opt_state, "mu"):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, (list, tuple)):
+        for node in opt_state:
+            found = _adam_leaves(node)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_numpy(opt_state, names: Sequence[str], device="cuda") -> AdamWState:
+    """utils/optim.AdamWState from optax's adam(lr) state ((ScaleByAdamState,
+    EmptyState())) or chain(clip_by_global_norm, adam) state ((EmptyState(),
+    (ScaleByAdamState, EmptyState()))) with numpy leaves; mu and nu are
+    flax trees like the parameters, taken in the order of `names`."""
+    count, mu, nu = _adam_leaves(opt_state)
+    mu, nu = flax_params_to_state_dict(mu, device), flax_params_to_state_dict(nu, device)
+    return AdamWState(_tensor(np.asarray(count, np.int32), device), [mu[n] for n in names],
+                      [nu[n] for n in names])
+
+
+def _ordered(params: Dict[str, torch.Tensor], names: Optional[Sequence[str]]):
+    """`params` in the order of `names` (their own order without), which
+    must name exactly the same parameters."""
+    if names is None:
+        return params
+    if set(names) != set(params):
+        raise KeyError(f"parameter names differ: {sorted(set(names) ^ set(params))}")
+    return {n: params[n] for n in names}
+
+
+def coma_state_from_numpy(state, actor_names: Optional[Sequence[str]] = None,
+                          critic_names: Optional[Sequence[str]] = None,
+                          device="cuda") -> COMAState:
+    """rl/coma.COMAState from a JAX COMAState with numpy leaves: actor_params
+    {'encoder': {'params': ...}, 'agv': {'params': {'Dense_k'}}, 'picker':
+    ...} (names `encoder.`, `agv.`, `picker.`), critic_params {'params':
+    {'Dense_k'}}, each optimizer state optax's adam state, step. The name
+    lists order the parameters (the agent's own order); the trees' order by
+    default."""
+    actor = _ordered(flax_params_to_state_dict(state.actor_params, device), actor_names)
+    critic = _ordered(flax_params_to_state_dict(state.critic_params, device), critic_names)
+    return COMAState(
+        actor_params=actor, critic_params=critic,
+        actor_opt=adam_state_from_numpy(state.actor_opt, list(actor), device),
+        critic_opt=adam_state_from_numpy(state.critic_opt, list(critic), device),
+        step=_tensor(np.asarray(state.step, np.int32), device))
+
+
+def coma_state_to_numpy(state: COMAState) -> dict:
+    """The parameters of a COMAState as the JAX state's flax trees:
+    {'actor_params': {'encoder': {'params'}, 'agv': {'params'}, 'picker':
+    {'params'}}, 'critic_params': {'params'}, 'step'}."""
+    actor = _nested(state.actor_params)
+    return {"actor_params": {k: {"params": v} for k, v in actor.items()},
+            "critic_params": {"params": _nested(state.critic_params)},
+            "step": state.step.detach().cpu().numpy()}
+
+
+def mappo_params_from_numpy(actor_tree: Mapping, critic_tree: Mapping,
+                            actor_names: Optional[Sequence[str]] = None,
+                            critic_names: Optional[Sequence[str]] = None, device="cuda"):
+    """(actor parameters, critic parameters) by name from JAX's MAPPO trees
+    as numpy: the actor a Q-network of make_network's family, the critic a
+    `ValueNet` ({'params': {'Dense_0', 'Dense_1', 'Dense_2'}}), each in the
+    order of its names (rl/ppo.MappoRun's), which must match the tree's."""
+    return (_ordered(flax_params_to_state_dict(actor_tree, device), actor_names),
+            _ordered(flax_params_to_state_dict(critic_tree, device), critic_names))

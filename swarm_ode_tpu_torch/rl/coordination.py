@@ -106,10 +106,18 @@ def coordinated_sample(logits: torch.Tensor, masks: torch.Tensor, num_agvs: int,
                               order_scores=masked.max(dim=-1).values)
 
 
-def _log_softmax(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.log_softmax's form: shifted - log(sum(exp(shifted)))."""
-    shifted = x - x.max(dim=-1, keepdim=True).values
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.log_softmax's form: shifted - log(sum(exp(shifted))), the
+    shift by the row's maximum outside the gradient (JAX stops it)."""
+    shifted = x - x.max(dim=-1, keepdim=True).values.detach()
     return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
+def entropy_of(logp: torch.Tensor) -> torch.Tensor:
+    """-(p * log p) summed over the last axis, terms of p <= 1e-8 left out
+    (JAX's form, which keeps the gradient finite at masked actions)."""
+    p = torch.exp(logp)
+    return -(p * torch.where(p > 1e-8, logp, 0.0)).sum(-1)
 
 
 def sequential_log_prob(logits: torch.Tensor, masks: torch.Tensor, actions: torch.Tensor,
@@ -127,10 +135,9 @@ def sequential_log_prob(logits: torch.Tensor, masks: torch.Tensor, actions: torc
     entropy = torch.zeros_like(logp)
     bidx = torch.arange(logits.shape[0], device=logits.device)
     for i, row, a in _claim_pass(masked, order, active, num_agvs, rack_start, actions):
-        logp_row = _log_softmax(row)
-        p = torch.exp(logp_row)
+        logp_row = log_softmax(row)
         logp[bidx, i] = logp_row.gather(-1, a[:, None])[:, 0]
-        entropy[bidx, i] = -(p * torch.where(p > 1e-8, logp_row, 0.0)).sum(-1)
+        entropy[bidx, i] = entropy_of(logp_row)
     return logp, entropy
 
 

@@ -25,7 +25,12 @@ from torch.func import functional_call
 
 from swarm_ode_tpu_torch.env.state import EnvParams
 from swarm_ode_tpu_torch.env.step import draw_gumbel
-from swarm_ode_tpu_torch.graphs.hetero import HeteroGraph, build_hetero_graph, masks_from_feats
+from swarm_ode_tpu_torch.graphs.hetero import (
+    HeteroGraph,
+    build_hetero_graph,
+    hetero_graph_from_obs,
+    masks_from_feats,
+)
 from swarm_ode_tpu_torch.rl import coordination
 from swarm_ode_tpu_torch.utils.optim import AdamWState, adamw_init, adamw_update, clip_by_global_norm
 
@@ -113,6 +118,13 @@ def q_values(net: nn.Module, params: Dict[str, torch.Tensor], graph: HeteroGraph
     return torch.cat([out["agv_q_values"], out["picker_q_values"]], dim=-2)
 
 
+def obs_q_values(net: nn.Module, params: Dict[str, torch.Tensor], env_params: EnvParams,
+                 obs: torch.Tensor) -> torch.Tensor:
+    """q_values over observations (B, A_total, obs_len): the network's AGV
+    and picker scores on their hetero graphs."""
+    return q_values(net, params, hetero_graph_from_obs(env_params, obs))
+
+
 def graph_from_feats(env_params: EnvParams, feats) -> HeteroGraph:
     return build_hetero_graph(env_params, feats["agv"], feats["picker"], feats["loc"])
 
@@ -135,22 +147,51 @@ def fresh_state(params: Dict[str, torch.Tensor], epsilon_start: float) -> DQNSta
         step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def value_and_grad(loss_fn, *param_dicts, has_aux: bool = False):
+    """jax.value_and_grad of loss_fn(*param_dicts) with respect to every
+    dict of parameters: (loss, aux (None without has_aux; a tensor or a
+    tuple of tensors, detached), [grads by name, one dict per argument]).
+    The dicts are left as they were. Parameters the loss does not reach get
+    zero gradients, as in JAX."""
+    leaves = [[v.detach().requires_grad_(True) for v in d.values()] for d in param_dicts]
+    with torch.enable_grad():
+        out = loss_fn(*(dict(zip(d, lv)) for d, lv in zip(param_dicts, leaves)))
+        loss, aux = out if has_aux else (out, None)
+        flat = [v for lv in leaves for v in lv]
+        grads = list(torch.autograd.grad(loss, flat, allow_unused=True))
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+    if isinstance(aux, torch.Tensor):
+        aux = aux.detach()
+    elif isinstance(aux, tuple):
+        aux = tuple(a.detach() for a in aux)
+    out_grads = []
+    for d in param_dicts:
+        out_grads.append(dict(zip(d, grads[:len(d)])))
+        grads = grads[len(d):]
+    return loss.detach(), aux, out_grads
+
+
+def adam_step(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+              opt_state: AdamWState, lr: float, grad_clip: Optional[float] = None):
+    """optax's adam(lr), after clip_by_global_norm(grad_clip) when a clip is
+    given: (new params by name, new optimizer state). `params` is left as
+    it was."""
+    g = [grads[k] for k in params]
+    if grad_clip is not None:
+        g = clip_by_global_norm(g, grad_clip)
+    new = [v.detach().clone() for v in params.values()]
+    opt_state = adamw_update(new, g, opt_state, lr, 0.0)
+    return dict(zip(params, new)), opt_state
+
+
 def grads_and_update(loss_fn, params: Dict[str, torch.Tensor], opt_state: AdamWState,
                      grad_clip: float, lr: float):
     """value_and_grad of loss_fn(params) then optax's chain(clip_by_global_norm,
     adam): (loss, grads by name, new params, new optimizer state). `params`
-    is left as it was. Parameters the loss does not reach get zero
-    gradients, as in JAX."""
-    names = list(params)
-    leaves = [v.detach().requires_grad_(True) for v in params.values()]
-    with torch.enable_grad():
-        loss = loss_fn(dict(zip(names, leaves)))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-    clipped = clip_by_global_norm(grads, grad_clip)
-    new = [v.detach().clone() for v in params.values()]
-    opt_state = adamw_update(new, clipped, opt_state, lr, 0.0)
-    return loss.detach(), dict(zip(names, grads)), dict(zip(names, new)), opt_state
+    is left as it was."""
+    loss, _, (grads,) = value_and_grad(loss_fn, params)
+    new, opt_state = adam_step(params, grads, opt_state, lr, grad_clip)
+    return loss, grads, new, opt_state
 
 
 class IQLAgent:

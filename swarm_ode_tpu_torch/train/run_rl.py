@@ -1,13 +1,19 @@
-"""Online off-policy MARL (IQL, QMIX) on B lockstep envs.
+"""Online MARL (IQL, QMIX, COMA) on B lockstep envs.
 
 Counterpart of `swarm_ode_tpu/train/run_rl.py` (RLRunConfig :40,
-_make_network :131, _feats :186, _global_state :191, run_marl :205; reference
-run_gnode.py:1328-1531, graph.py:632-701) for algo "iql" and "qmix" and
-net "gnode", "gnode_comm" and "gnn". Per episode stride: reset B envs ->
-observe -> hetero graph -> Q-network -> masked epsilon-greedy or the claim
-auction -> env step (the replan query K1 on the card) -> replay -> one
-IQL or QMIX learn step every `learn_every` env steps once the buffer is
-warm -> target sync -> one stat line.
+_make_network :131, _feats :186, _global_state :191, run_marl :205, its COMA
+branches :263-276, :487, :589-627 and init_q_from :282-304; reference
+run_gnode.py:1328-1531, gru.py:1035-1275, graph.py:632-701) for algo "iql",
+"qmix" and "coma" and net "gnode", "gnode_comm" and "gnn". Per episode
+stride: reset B envs -> observe -> hetero graph -> Q-network (COMA: the
+actors) -> masked epsilon-greedy, sampling or the claim auction -> env step
+(the replan query K1 on the card) -> replay -> one IQL or QMIX learn step
+every `learn_every` env steps once the buffer is warm -> target sync -> one
+stat line. COMA is on-policy: after each stride it takes `coma_updates`
+updates, each on a batch sampled from that stride's transitions
+(replay.sample_recent). `init_q_from` warm-starts an IQL or QMIX
+Q-network (and its target) from a behaviour-cloning checkpoint
+(train/train_bc.py).
 
 The JAX package runs an episode as one `lax.scan` with one transfer to the
 host; here the episode is a Python loop of device work that never waits on
@@ -36,22 +42,24 @@ from swarm_ode_tpu_torch.env.observations import compute_valid_action_masks, obs
 from swarm_ode_tpu_torch.env.state import EnvParams, make_params
 from swarm_ode_tpu_torch.graphs.hetero import hetero_graph_from_obs, split_observation
 from swarm_ode_tpu_torch.models.gnode import HeteroGraphODENetwork
-from swarm_ode_tpu_torch.models.hetero_gnn import HeteroGNNNetwork
+from swarm_ode_tpu_torch.models.hetero_gnn import HeteroGNNEncoder, HeteroGNNNetwork
 from swarm_ode_tpu_torch.rl import replay
+from swarm_ode_tpu_torch.rl.coma import COMAAgent, COMAConfig, COMAState
 from swarm_ode_tpu_torch.rl.dqn import DQNConfig, DQNState, IQLAgent, draw_act_noise
+from swarm_ode_tpu_torch.rl.draws import RolloutDraws
 from swarm_ode_tpu_torch.rl.qmix import QMIXAgent, QMIXConfig
 from swarm_ode_tpu_torch.utils.checkpoint import CheckpointManager
 from swarm_ode_tpu_torch.utils.logging import MetricsLogger
 from swarm_ode_tpu_torch.utils.metrics import pick_rate
 
 NETS = ("gnode", "gnode_comm", "gnn")
-ALGOS = ("iql", "qmix")
+ALGOS = ("iql", "qmix", "coma")
 
 
 @dataclasses.dataclass
 class RLRunConfig:
     env_id: str = "tarware-medium-19agvs-9pickers-partialobs-v1"
-    algo: str = "qmix"  # iql | qmix
+    algo: str = "qmix"  # iql | qmix | coma
     net: str = "gnode"  # gnode | gnode_comm | gnn
     num_envs: int = 1  # lockstep envs feeding the shared replay buffer
     num_episodes: int = 100
@@ -61,8 +69,8 @@ class RLRunConfig:
     learn_every: int = 1
     target_sync_episodes: int = 20  # IQL hard target sync
     buffer_clear_episodes: int = 0  # clear replay every N episodes; 0 = never
-    # Team reward for QMIX: 'mean' keeps the value scale independent of the
-    # agent count; 'sum' is the reference's convention.
+    # Team reward for QMIX and COMA: 'mean' keeps the value scale independent
+    # of the agent count; 'sum' is the reference's convention.
     team_reward: str = "mean"
     n_step: int = 3  # n-step TD targets, never across episode boundaries
     value_transform: bool = True  # R2D2 h-transform of QMIX targets
@@ -73,6 +81,14 @@ class RLRunConfig:
     epsilon_decay: Optional[float] = None
     epsilon_min: Optional[float] = None
     epsilon_start: Optional[float] = None
+    # COMA is on-policy: after each stride, this many updates, each on a
+    # batch sampled from the stride's own transitions (replay.sample_recent).
+    coma_updates: int = 8
+    # COMA's optimizer and entropy knobs (rl/coma.COMAConfig).
+    coma_lr_actor: float = 1e-3
+    coma_lr_critic: float = 1e-3
+    coma_entropy: float = 0.01
+    coma_entropy_decay: float = 1.0
     seed: int = 0
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 100
@@ -82,7 +98,9 @@ class RLRunConfig:
     eval_episodes: int = 8
     eval_stochastic: bool = False  # evaluate with epsilon-greedy at the agent's epsilon
     resume_from: Optional[str] = None  # checkpoint dir of a previous run
-    # Warm start from behaviour-cloned parameters: not ported yet.
+    # Warm-start the Q-network (and its target) from a behaviour-cloning
+    # checkpoint ({'q_params': ...}, train/train_bc.py) of the same net and
+    # hidden_dim; applied at init, before resume_from; IQL and QMIX only.
     init_q_from: Optional[str] = None
     coordinated: bool = False  # the claim auction (rl/coordination.py)
     device: str = "cuda"
@@ -108,18 +126,15 @@ def make_network(cfg: RLRunConfig, action_size: int, coord_scale: float = 1.0):
 
 
 def _check_supported(cfg: RLRunConfig) -> None:
-    if cfg.algo == "coma":
-        raise ValueError("algo='coma' is not ported yet: it comes with COMA and PPO "
-                         "(ROADMAP.md queue 1, item 4)")
     if cfg.algo not in ALGOS:
         raise ValueError(f"algo must be one of {ALGOS}, got {cfg.algo!r}")
-    if cfg.init_q_from:
-        raise ValueError("init_q_from is not ported yet: it comes with behaviour cloning "
-                         "(ROADMAP.md queue 1, item 5)")
+    if cfg.init_q_from and cfg.algo not in ("iql", "qmix"):
+        raise ValueError("init_q_from supports algo in (iql, qmix)")
 
 
 def agent_params(astate: DQNState) -> Dict[str, torch.Tensor]:
-    """The Q-network's parameters of an IQL or QMIX state."""
+    """The Q-network's parameters of an IQL or QMIX state (names without
+    QMIX's `q.` prefix)."""
     p = astate.params
     if any(k.startswith("mixer.") for k in p):
         return {k[2:]: v for k, v in p.items() if k.startswith("q.")}
@@ -143,23 +158,22 @@ def global_state_dim(params: EnvParams) -> int:
     return 7 * params.num_agvs + 4 * params.num_pickers + 2 * params.num_racks
 
 
-class MarlDraws:
+class MarlDraws(RolloutDraws):
     """run_marl's random draws from one torch.Generator on the params'
     device: the resets of each stride, each step's env draws, each act's
-    exploration draws and each learn block's sample indices. `split`
-    gives the draws of an evaluation probe (JAX splits a key there; one
-    generator serves both here)."""
+    draws (IQL / QMIX: the exploration draws; COMA: the Gumbels it samples
+    with), each learn block's sample indices and each COMA update's offsets
+    into the stride (`recent`). `split` gives the draws of an evaluation
+    probe."""
 
-    def __init__(self, params: EnvParams, generator: torch.Generator, coordinated: bool):
-        self.params, self.generator, self.coordinated = params, generator, coordinated
-
-    def reset(self, B: int):
-        return step_mod.reset(self.params, B, self.generator)
-
-    def step(self, B: int) -> step_mod.StepNoise:
-        return step_mod.draw_noise(self.params, B, self.generator)
+    def __init__(self, params: EnvParams, generator: torch.Generator, coordinated: bool,
+                 algo: str = "qmix"):
+        super().__init__(params, generator)
+        self.coordinated, self.algo = coordinated, algo
 
     def act(self, B: int):
+        if self.algo == "coma":
+            return self.gumbel(B)
         p = self.params
         return draw_act_noise(B, p.num_agents, p.num_actions, self.coordinated,
                               self.generator, p.device)
@@ -168,18 +182,40 @@ class MarlDraws:
         return torch.randint(0, max(size, 1), (batch_size,), generator=self.generator,
                              device=self.params.device)
 
-    def split(self) -> "MarlDraws":
-        return self
+    def recent(self, size: int, batch_size: int, window: int) -> torch.Tensor:
+        """replay.sample_recent's offsets, uniform in [1, min(window, size)]."""
+        w = max(min(window, size), 1)
+        return torch.randint(1, w + 1, (batch_size,), generator=self.generator,
+                             device=self.params.device)
 
 
-def _state_tree(astate: DQNState) -> dict:
+def _state_tree(astate) -> dict:
+    if isinstance(astate, COMAState):
+        return astate.tree()
     return {"params": astate.params, "target_params": astate.target_params,
             "opt_state": astate.opt_state, "epsilon": astate.epsilon, "step": astate.step}
 
 
+def _state_from_tree(tree: dict, like):
+    return (COMAState if isinstance(like, COMAState) else DQNState)(**tree)
+
+
 def make_agent(cfg: RLRunConfig, params: EnvParams):
-    """(agent, network) of `cfg` on params.device."""
+    """(agent, network) of `cfg` on params.device; COMA's network is its
+    actors (the encoder and the two heads)."""
     scale = 1.0 / float(max(params.grid_h, params.grid_w))
+    if cfg.algo == "coma":
+        # COMA's encoder is the GNN encoder whatever cfg.net is (JAX
+        # run_rl.py:264).
+        encoder = HeteroGNNEncoder(cfg.hidden_dim, 2, coord_scale=scale).to(params.device)
+        ccfg = COMAConfig(lr_actor=cfg.coma_lr_actor, lr_critic=cfg.coma_lr_critic,
+                          entropy_coef=cfg.coma_entropy, entropy_decay=cfg.coma_entropy_decay,
+                          coordinated=cfg.coordinated)
+        if cfg.gamma is not None:
+            ccfg.gamma = cfg.gamma
+        agent = COMAAgent(encoder, params, params.num_actions, global_state_dim(params),
+                          cfg.hidden_dim, ccfg)
+        return agent, agent.actors
     net = make_network(cfg, params.num_actions, coord_scale=scale).to(params.device)
     overrides = {k: getattr(cfg, k) for k in ("gamma", "epsilon_decay", "epsilon_min",
                                               "epsilon_start") if getattr(cfg, k) is not None}
@@ -221,12 +257,25 @@ def batch_from(sampled, algo: str, gamma: float, n_step: int, team_reward: str =
 STEP_STATS = ("reward", "deliveries", "clashes", "stucks", "replan_overflow")
 
 
+def load_q_params(astate: DQNState, directory: str, algo: str) -> DQNState:
+    """`astate` with its Q-network's parameters (QMIX's `q.` part) and their
+    targets replaced by a behaviour-cloning checkpoint's {'q_params': ...};
+    Adam's state, epsilon and step stay."""
+    template = agent_params(astate)
+    restored = CheckpointManager(directory).restore({"q_params": template})
+    if restored is None:
+        raise FileNotFoundError(f"init_q_from={directory}: no checkpoint found")
+    qp = restored["q_params"]
+    params = {**astate.params, **{f"q.{k}": v for k, v in qp.items()}} if algo == "qmix" else qp
+    return astate.replace(params=params, target_params=dict(params))
+
+
 class MarlRun:
-    """One off-policy MARL run's pieces: the env params on cfg.device, the
-    agent and its state, the replay buffer, the draws. `episode` and
+    """One MARL run's pieces: the env params on cfg.device, the agent and
+    its state, the replay buffer, the draws. `episode`, `coma_update` and
     `eval_probe` never wait on the card; run_marl drives them."""
 
-    def __init__(self, cfg: RLRunConfig, draws=None, agent_state: Optional[DQNState] = None):
+    def __init__(self, cfg: RLRunConfig, draws=None, agent_state=None, verbose: bool = False):
         _check_supported(cfg)
         dev = torch.device(cfg.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
@@ -244,9 +293,14 @@ class MarlRun:
                 "per block")
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         self.draws = draws if draws is not None else MarlDraws(params, generator,
-                                                               cfg.coordinated)
+                                                               cfg.coordinated, cfg.algo)
         self.agent, self.net = make_agent(cfg, params)
+        self.off_policy = cfg.algo in ("iql", "qmix")
         self.astate = agent_state if agent_state is not None else self.agent.init(generator)
+        if cfg.init_q_from:
+            self.astate = load_q_params(self.astate, cfg.init_q_from, cfg.algo)
+            if verbose:
+                print(f"[init] Q-network warm-started from {cfg.init_q_from}", flush=True)
         self.gs_scale = 1.0 / float(max(params.grid_h, params.grid_w))
         A, P, L, N = params.num_agvs, params.num_pickers, params.num_racks, params.num_agents
         f32 = dict(dtype=torch.float32, device=dev)
@@ -302,10 +356,13 @@ class MarlRun:
         return es, obs, sums
 
     def learn_block(self) -> torch.Tensor:
-        """The learn step closing a block: sample (the draw is taken even
-        when the buffer is not ready, as JAX's), learn when it is. Returns
-        the loss (0 when not ready)."""
+        """The learn step closing a block (IQL and QMIX): sample (the draw is
+        taken even when the buffer is not ready, as JAX's), learn when it
+        is. Returns the loss (0 when not ready, and for COMA, which draws
+        nothing here)."""
         cfg, B = self.cfg, self.cfg.num_envs
+        if not self.off_policy:
+            return torch.zeros((), dtype=torch.float32, device=self.device)
         idx = self.draws.sample(self.buf.size, cfg.batch_size)
         # Warm start: chains need n_step * B slots of history.
         if self.buf.size < cfg.batch_size + cfg.n_step * B:
@@ -327,6 +384,22 @@ class MarlRun:
                 outs.append(sums)
             losses.append(self.learn_block())
         return es, torch.stack(outs), torch.stack(losses)
+
+    def coma_update(self):
+        """One COMA update on a batch sampled from the newest stride
+        (steps x B transitions) of the buffer. Returns its
+        {'critic_loss', 'actor_loss'}, on the device."""
+        cfg = self.cfg
+        window = self.steps * cfg.num_envs
+        off = self.draws.recent(self.buf.size, cfg.batch_size, window)
+        sampled = replay.sample_recent(self.buf, cfg.batch_size, window, off=off)
+        team = sampled["rewards"].mean(-1) if cfg.team_reward == "mean" else \
+            sampled["rewards"].sum(-1)
+        self.astate, aux = self.agent.update(self.astate, {
+            "obs_feats": sampled["obs_feats"], "global_state": sampled["global_state"],
+            "actions": sampled["actions"], "rewards": team,
+            "next_global_state": sampled["next_global_state"], "dones": sampled["done"]})
+        return aux
 
     def eval_probe(self, draws):
         """Greedy evaluation (epsilon-greedy with cfg.eval_stochastic):
@@ -351,16 +424,18 @@ class MarlRun:
 
 
 def run_marl(cfg: RLRunConfig, logger: Optional[MetricsLogger] = None, verbose: bool = True,
-             draws=None, agent_state: Optional[DQNState] = None) -> Dict:
-    """Train (or, with num_episodes == 0, only evaluate) an IQL or QMIX agent.
+             draws=None, agent_state=None) -> Dict:
+    """Train (or, with num_episodes == 0, only evaluate) an IQL, QMIX or
+    COMA agent.
 
     draws: the random draws (default MarlDraws from a generator seeded with
       cfg.seed); agent_state: the initial agent state in place of a fresh
-      initialisation (resume_from still applies on top).
-    Returns {'agent_state', 'history' (one stats dict per stride),
-    'losses' (per stride, the (steps // learn_every,) learn losses, 0 where
-    the buffer was not ready), 'buffer'}."""
-    run = MarlRun(cfg, draws, agent_state)
+      initialisation (init_q_from and resume_from still apply on top).
+    Returns {'agent_state', 'history' (one stats dict per stride; COMA's
+    with the last update's critic_loss and actor_loss, and loss the
+    critic's), 'losses' (per stride, the (steps // learn_every,) learn
+    losses, 0 where the buffer was not ready and for COMA), 'buffer'}."""
+    run = MarlRun(cfg, draws, agent_state, verbose)
     steps, B, E = run.steps, cfg.num_envs, cfg.eval_episodes
     ep_base = 0
     if cfg.resume_from:
@@ -368,7 +443,7 @@ def run_marl(cfg: RLRunConfig, logger: Optional[MetricsLogger] = None, verbose: 
         restored = rck.restore({"agent": _state_tree(run.astate)})
         if restored is None:
             raise FileNotFoundError(f"resume_from={cfg.resume_from}: no checkpoint found")
-        run.astate = DQNState(**restored["agent"])
+        run.astate = _state_from_tree(restored["agent"], run.astate)
         ep_base = int(rck.latest_step()) + B
         if verbose:
             print(f"[resume] restored agent from {cfg.resume_from} step {rck.latest_step()} "
@@ -395,11 +470,16 @@ def run_marl(cfg: RLRunConfig, logger: Optional[MetricsLogger] = None, verbose: 
     for ep in range(0, cfg.num_episodes, B):
         es = run.draws.reset(B)
         t_start = time.time()
-        with _sync_guard(guard):
+        with sync_guard(guard):
             es, outs, loss = run.episode(es, (ep_base + ep) * steps, ep_base + ep)
         outs, loss = outs.cpu().numpy(), loss.cpu().numpy()
+        episode_seconds = time.time() - t_start
         all_losses.append(loss)
         rew_sum, deliv, clash, stuck = (outs[:, i] / B for i in range(4))
+        coma_aux, t_updates = None, time.time()
+        if cfg.algo == "coma":
+            for _ in range(max(1, cfg.coma_updates)):
+                coma_aux = run.coma_update()
         if cfg.algo == "iql" and (ep + 1) % cfg.target_sync_episodes == 0:
             run.astate = run.agent.sync_target(run.astate)
         if cfg.buffer_clear_episodes and (ep + B) % cfg.buffer_clear_episodes < B:
@@ -414,7 +494,13 @@ def run_marl(cfg: RLRunConfig, logger: Optional[MetricsLogger] = None, verbose: 
             "loss": float(loss[loss != 0].mean()) if (loss != 0).any() else 0.0,
             "replan_overflow": int(outs[:, 4].sum()),
             "seconds": time.time() - t_start,
+            "episode_seconds": episode_seconds,
         }
+        if coma_aux is not None:
+            stats["critic_loss"] = float(coma_aux["critic_loss"])
+            stats["actor_loss"] = float(coma_aux["actor_loss"])
+            stats["loss"] = stats["critic_loss"]
+            stats["coma_update_seconds"] = time.time() - t_updates
         if cfg.eval_every and (ep + B) % cfg.eval_every < B:
             er, ed, pr = eval_stats()
             stats.update(eval_return=er, eval_deliveries=ed, eval_pick_rate=pr)
@@ -441,7 +527,7 @@ def run_marl(cfg: RLRunConfig, logger: Optional[MetricsLogger] = None, verbose: 
 
 
 @contextlib.contextmanager
-def _sync_guard(on: bool):
+def sync_guard(on: bool):
     """torch.cuda.set_sync_debug_mode("error") inside the block when `on`."""
     if not on:
         yield
@@ -487,6 +573,8 @@ def main(argv=None) -> None:
     p.add_argument("--eval_episodes", type=int, default=8)
     p.add_argument("--resume_from", default=None,
                    help="checkpoint dir to resume agent state from")
+    p.add_argument("--init_q_from", default=None,
+                   help="behaviour-cloning checkpoint dir to warm-start the Q-network from")
     p.add_argument("--coordinated", action="store_true",
                    help="conflict-masked sequential action selection (rl/coordination.py)")
     p.add_argument("--device", default="cuda")
@@ -501,7 +589,8 @@ def main(argv=None) -> None:
         target_tau=args.target_tau, epsilon_decay=args.epsilon_decay, seed=args.seed,
         checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
         eval_every=args.eval_every, eval_episodes=args.eval_episodes,
-        resume_from=args.resume_from, coordinated=args.coordinated, device=args.device)
+        resume_from=args.resume_from, init_q_from=args.init_q_from,
+        coordinated=args.coordinated, device=args.device)
     logger = MetricsLogger("swarm_ode", name=f"{args.net}+{args.algo}", config=vars(args),
                            out_dir=args.out_dir, use_wandb=False)
     run_marl(cfg, logger=logger)

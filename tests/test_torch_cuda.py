@@ -745,3 +745,104 @@ def test_run_marl_on_the_card_without_a_host_sync(cuda, tmp_path):
     s = step_mod.reset(run.params, 3, torch.Generator(device=cuda).manual_seed(0))
     a = policy(observe(run.params, s))
     assert a.shape == (3, run.params.num_agents) and a.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_learning_from_the_dispatcher_on_the_card(cuda, tmp_path):
+    """The paths that learn from the dispatcher, on the card (their default
+    device), tiny: train_bc on recorded expert episodes with a checkpoint;
+    collect_dagger, evaluate_policy, run_mappo warm-started from the clone
+    (its collection with host synchronisation forbidden) and
+    run_marl(algo="coma") (its episode likewise) each launch K1 once a step
+    with overflow 0; QMIX built with init_q_from holds the clone."""
+    import numpy as np
+
+    from swarm_ode_tpu_torch.config import EnvConfig
+    from swarm_ode_tpu_torch.data.collect import collect_batch
+    from swarm_ode_tpu_torch.env.layout import build_layout
+    from swarm_ode_tpu_torch.env.state import make_params
+    from swarm_ode_tpu_torch.rl import ppo
+    from swarm_ode_tpu_torch.train import run_rl
+    from swarm_ode_tpu_torch.train import train_bc as bc
+
+    tiny = "tarware-tiny-3agvs-2pickers-partialobs-v1"
+    cfg = EnvConfig.from_env_id(tiny)
+    lay = build_layout(cfg)
+    pp = make_params(cfg, lay)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    traj, _ = collect_batch(pp, lay, 4, 100, 50, g)
+    flat = lambda k: traj[k].reshape((400,) + traj[k].shape[2:])
+    arrays = (flat("observations").astype(np.float16), flat("actions").astype(np.int32),
+              flat("agent_busy"), np.repeat(np.arange(4, dtype=np.int32), 100))
+    clone = bc.train_bc(bc.BCConfig(env_id=tiny, net="gnn", hidden_dim=16, epochs=2,
+                                    batch_size=16, val_frac=0.25,
+                                    checkpoint_dir=str(tmp_path / "bc")),
+                        verbose=False, arrays=arrays)
+    assert np.isfinite(clone["history"][-1]["train_loss"])
+    bfs_bitpack.LAUNCHES = 0
+    *_, st = bc.collect_dagger(pp, lay, clone["net"], clone["params"], 2, g, beta=0.25,
+                               steps=40, with_stats=True)
+    assert bfs_bitpack.LAUNCHES == 40 and st["replan_overflow"] == 0
+    bfs_bitpack.LAUNCHES = 0
+    ev = bc.evaluate_policy(pp, clone["net"], clone["params"], 2, g, coordinated=True,
+                            verbose=False)
+    assert bfs_bitpack.LAUNCHES == 500 and ev["replan_overflow"] == 0
+    mcfg = ppo.MAPPOConfig(env_id=tiny, net="gnn", hidden_dim=16, num_envs=2, num_strides=1,
+                           steps_override=20, minibatch=8, init_from=str(tmp_path / "bc"),
+                           forbid_host_sync=True)
+    run = ppo.MappoRun(mcfg)
+    assert all(torch.equal(run.actor_params[k], v) for k, v in clone["params"].items())
+    bfs_bitpack.LAUNCHES = 0
+    h = ppo.run_mappo(mcfg, verbose=False, run=run)["history"][0]
+    assert bfs_bitpack.LAUNCHES == 20 and h["replan_overflow"] == 0
+    assert np.isfinite([h["pg_loss"], h["v_loss"], h["entropy"]]).all()
+    ccfg = run_rl.RLRunConfig(env_id=tiny, algo="coma", net="gnn", num_envs=2, num_episodes=2,
+                              hidden_dim=16, batch_size=16, learn_every=5, coma_updates=2,
+                              coordinated=True, forbid_host_sync=True)
+    bfs_bitpack.LAUNCHES = 0
+    h = run_rl.run_marl(ccfg, verbose=False)["history"][0]
+    assert bfs_bitpack.LAUNCHES == 500 and h["replan_overflow"] == 0
+    assert np.isfinite([h["critic_loss"], h["actor_loss"]]).all()
+    q = run_rl.MarlRun(run_rl.RLRunConfig(env_id=tiny, algo="qmix", net="gnn", num_envs=2,
+                                          hidden_dim=16, init_q_from=str(tmp_path / "bc")))
+    for k, v in clone["params"].items():
+        assert torch.equal(q.astate.params[f"q.{k}"], v)
+        assert torch.equal(q.astate.target_params[f"q.{k}"], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coordinated", [False, True])
+def test_coma_update_card_vs_cpu(cuda, coordinated):
+    """One COMA update (counterfactual baseline) on the card against the
+    CPU from the same state and batch: both losses within 1e-5, both
+    gradients within 1e-5 of their largest element."""
+    import dataclasses
+
+    from swarm_ode_tpu_torch.env.observations import observe
+    from swarm_ode_tpu_torch.rl import replay
+    from swarm_ode_tpu_torch.train import run_rl
+
+    cfg = run_rl.RLRunConfig(env_id="tarware-tiny-3agvs-2pickers-partialobs-v1", algo="coma",
+                             num_envs=4, hidden_dim=16, buffer_size=128, batch_size=16,
+                             coordinated=coordinated, device="cpu")
+    run = run_rl.MarlRun(cfg)
+    es = run.draws.reset(4)
+    o = observe(run.params, es)
+    for t in range(20):
+        es, o, _ = run.env_step(es, o, t, 0)
+    s = replay.sample_recent(run.buf, 16, 80, off=torch.arange(1, 17) * 3)
+    batch = {"obs_feats": s["obs_feats"], "global_state": s["global_state"],
+             "actions": s["actions"], "rewards": s["rewards"].mean(-1),
+             "next_global_state": s["next_global_state"], "dones": s["done"]}
+    _, aux_c, gr_c = run.agent.update_with_grads(run.astate, batch)
+    agent_g, _ = run_rl.make_agent(dataclasses.replace(cfg, device="cuda"),
+                                   run_rl.MarlRun(dataclasses.replace(
+                                       cfg, device="cuda", buffer_size=8)).params)
+    _, aux_g, gr_g = agent_g.update_with_grads(_marl_tree_to(run.astate, cuda),
+                                               _marl_tree_to(batch, cuda))
+    for k in aux_c:
+        assert abs(float(aux_g[k]) - float(aux_c[k])) <= 1e-5 * abs(float(aux_c[k])), k
+    for part in ("critic", "actor"):
+        scale = max(float(v.abs().max()) for v in gr_c[part].values())
+        for k, v in gr_c[part].items():
+            assert float((gr_g[part][k].cpu() - v).abs().max()) <= 1e-5 * scale, (part, k)

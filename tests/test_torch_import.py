@@ -61,6 +61,11 @@ SLICE_MODULES = (
     "swarm_ode_tpu_torch.rl.dqn",
     "swarm_ode_tpu_torch.rl.qmix",
     "swarm_ode_tpu_torch.train.run_rl",
+    "swarm_ode_tpu_torch.models.coma",
+    "swarm_ode_tpu_torch.rl.coma",
+    "swarm_ode_tpu_torch.rl.draws",
+    "swarm_ode_tpu_torch.rl.ppo",
+    "swarm_ode_tpu_torch.train.train_bc",
 )
 # Modules a fresh interpreter must not load when it imports the port: JAX,
 # the JAX package and its training stack, h5py (needed only to decode or
@@ -137,6 +142,38 @@ def test_port_sources_never_name_jax():
                 )
 
 
+def test_learning_from_the_dispatcher_needs_no_h5py(tmp_path):
+    """train_bc, collect_dagger and run_mappo import no h5py, and train_bc
+    runs from arrays in memory with h5py unimportable (the card's machine
+    has none): only load_decision_arrays reads HDF5 files."""
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None  # any import of h5py now fails\n"
+        "import numpy as np, torch\n"
+        "from swarm_ode_tpu_torch.train import train_bc\n"
+        "from swarm_ode_tpu_torch.rl import ppo\n"
+        "obs = np.zeros((12, 5, 119), np.float16)\n"
+        "act = np.zeros((12, 5), np.int32)\n"
+        "busy = np.zeros((12, 5), bool)\n"
+        "ep = np.repeat(np.arange(3, dtype=np.int32), 4)\n"
+        "cfg = train_bc.BCConfig(env_id='tarware-tiny-3agvs-2pickers-partialobs-v1', net='gnn',\n"
+        "                        hidden_dim=8, epochs=1, batch_size=4, device='cpu',\n"
+        f"                        checkpoint_dir={str(tmp_path)!r})\n"
+        "out = train_bc.train_bc(cfg, verbose=False, arrays=(obs, act, busy, ep))\n"
+        "assert np.isfinite(out['history'][0]['train_loss'])\n"
+        "try:\n"
+        "    train_bc.load_decision_arrays(['x.h5'])\n"
+        "except ImportError:\n"
+        "    print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def _device_defaults():
     """{qualified name: default of its `device` parameter} over every
     function and method defined in the port's modules."""
@@ -176,6 +213,8 @@ def test_device_parameters_default_to_the_card():
         "swarm_ode_tpu_torch.data.collect.collect_data",
         "swarm_ode_tpu_torch.convert.flax_params_to_state_dict",
         "swarm_ode_tpu_torch.convert.agent_state_from_numpy",
+        "swarm_ode_tpu_torch.convert.coma_state_from_numpy",
+        "swarm_ode_tpu_torch.convert.mappo_params_from_numpy",
     }
     assert {k for k, v in found.items() if v == "cuda"} >= entry_points
 
@@ -203,3 +242,17 @@ def test_marl_runs_on_the_card_by_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="card"):
             run_rl.run_marl(cfg, verbose=False)
+
+
+def test_learners_from_the_dispatcher_run_on_the_card_by_default():
+    """BCConfig and MAPPOConfig (so train_bc, run_mappo) default to the card;
+    without one, run_mappo raises rather than falling back to the CPU."""
+    from swarm_ode_tpu_torch.rl import ppo
+    from swarm_ode_tpu_torch.train import train_bc
+
+    assert train_bc.BCConfig().device == "cuda"
+    cfg = ppo.MAPPOConfig(env_id="tarware-tiny-3agvs-2pickers-partialobs-v1", hidden_dim=8)
+    assert cfg.device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="card"):
+            ppo.run_mappo(cfg, verbose=False)

@@ -119,9 +119,13 @@ def test_served_policy_matches_jax(net):
 
 
 def test_unported_options_raise():
-    for kw in (dict(algo="coma"), dict(net="gru"), dict(init_q_from="somewhere")):
-        with pytest.raises(ValueError, match="not ported yet"):
-            run_rl.run_marl(run_rl.RLRunConfig(**{**LOOP, **kw}, device="cpu"), verbose=False)
+    with pytest.raises(ValueError, match="not ported yet"):
+        run_rl.run_marl(run_rl.RLRunConfig(**{**LOOP, "net": "gru"}, device="cpu"),
+                        verbose=False)
+    with pytest.raises(ValueError, match="init_q_from supports"):
+        run_rl.run_marl(run_rl.RLRunConfig(**{**LOOP, "algo": "coma",
+                                              "init_q_from": "somewhere"}, device="cpu"),
+                        verbose=False)
     with pytest.raises(ValueError, match="learn_every"):
         run_rl.run_marl(run_rl.RLRunConfig(**{**LOOP, "learn_every": 7}, device="cpu"),
                         verbose=False)

@@ -263,9 +263,9 @@ def jax_observations(jparams, jlayout, B: int, T: int, seed: int, every: int = 1
 
 
 def jax_agent(cfg, jparams):
-    """The JAX IQL or QMIX agent (and its network) that run_marl builds for
-    `cfg` (a port RLRunConfig; its fields carry over), as
-    swarm_ode_tpu/train/run_rl.py builds them."""
+    """The JAX IQL, QMIX or COMA agent (and its network; COMA's encoder)
+    that run_marl builds for `cfg` (a port RLRunConfig; its fields carry
+    over), as swarm_ode_tpu/train/run_rl.py builds them."""
     from swarm_ode_tpu.rl.dqn import DQNConfig, IQLAgent
     from swarm_ode_tpu.rl.qmix import QMIXAgent, QMIXConfig
     from swarm_ode_tpu.train import run_rl as jrun
@@ -273,6 +273,19 @@ def jax_agent(cfg, jparams):
     known = {f.name for f in dataclasses.fields(jrun.RLRunConfig)}
     jcfg = jrun.RLRunConfig(**{k: v for k, v in dataclasses.asdict(cfg).items() if k in known})
     scale = 1.0 / float(max(jparams.grid_h, jparams.grid_w))
+    gs_dim = 7 * jparams.num_agvs + 4 * jparams.num_pickers + 2 * jparams.num_racks
+    if cfg.algo == "coma":
+        from swarm_ode_tpu.models.hetero_gnn import HeteroGNNEncoder
+        from swarm_ode_tpu.rl.coma import COMAAgent, COMAConfig
+
+        encoder = HeteroGNNEncoder(cfg.hidden_dim, 2, coord_scale=scale)
+        ccfg = COMAConfig(lr_actor=cfg.coma_lr_actor, lr_critic=cfg.coma_lr_critic,
+                          entropy_coef=cfg.coma_entropy, entropy_decay=cfg.coma_entropy_decay,
+                          coordinated=cfg.coordinated)
+        if cfg.gamma is not None:
+            ccfg.gamma = cfg.gamma
+        return COMAAgent(encoder, jparams, jparams.num_actions, gs_dim, cfg.hidden_dim,
+                         ccfg), encoder
     net = jrun._make_network(jcfg, jparams.num_actions, jparams.num_agvs,
                              jparams.num_pickers, coord_scale=scale)
     over = {k: getattr(cfg, k) for k in ("gamma", "epsilon_decay", "epsilon_min",
@@ -280,7 +293,6 @@ def jax_agent(cfg, jparams):
     if cfg.algo == "iql":
         return IQLAgent(net, jparams, DQNConfig(batch_size=cfg.batch_size,
                                                 coordinated=cfg.coordinated, **over)), net
-    gs_dim = 7 * jparams.num_agvs + 4 * jparams.num_pickers + 2 * jparams.num_racks
     return QMIXAgent(net, jparams, gs_dim, QMIXConfig(
         batch_size=cfg.batch_size, value_transform=cfg.value_transform, td_clip=cfg.td_clip,
         huber_delta=cfg.huber_delta, target_tau=cfg.target_tau, coordinated=cfg.coordinated,
@@ -288,19 +300,25 @@ def jax_agent(cfg, jparams):
 
 
 def jax_example_graph(jparams, key):
-    """run_marl's example graph: one reset's observation as a hetero graph."""
+    """run_marl's example graph: one reset's observation as a hetero graph
+    (jitted: initialisers read only its shapes)."""
     from swarm_ode_tpu.env.observations import observe as jobserve
     from swarm_ode_tpu.graphs.hetero import hetero_graph_from_obs
 
-    return hetero_graph_from_obs(jparams, jobserve(jparams, jstep.reset(jparams, key)))
+    return jax.jit(lambda k: hetero_graph_from_obs(
+        jparams, jobserve(jparams, jstep.reset(jparams, k))))(key)
 
 
 def port_agent_state(jstate, port_agent, device="cpu"):
     """A JAX agent state carried into the port, in the port agent's
     parameter order."""
-    from swarm_ode_tpu_torch.convert import agent_state_from_numpy
+    from swarm_ode_tpu_torch.convert import agent_state_from_numpy, coma_state_from_numpy
     from swarm_ode_tpu_torch.rl.dqn import module_params
 
+    if hasattr(port_agent, "critic"):
+        return coma_state_from_numpy(jax.tree.map(np.asarray, jstate),
+                                     list(module_params(port_agent.actors)),
+                                     list(module_params(port_agent.critic)), device)
     names = list(module_params(port_agent.net))
     if hasattr(port_agent, "mixer"):
         names = [f"q.{n}" for n in names] + [f"mixer.{n}" for n in module_params(port_agent.mixer)]
@@ -313,12 +331,14 @@ class JaxMarlDraws:
     (train/run_rl.MarlDraws): the resets of each stride (key, kr =
     split(key); reset per split(kr, B)), each step's env draws (from the
     envs' own state keys), each act's draws (kas = split(key, B + 1), then
-    k1, k2 = split(ka) per env), each learn block's sample indices (key, ks
-    = split(key); randint(ks, (batch,), 0, max(size, 1))), and an
+    k1, k2 = split(ka) per env; COMA: the Gumbels of ka), each learn
+    block's sample indices (key, ks = split(key); randint(ks, (batch,), 0,
+    max(size, 1))), each COMA update's offsets (key, ks = split(key);
+    randint(ks, (batch,), 1, max(min(window, size), 1) + 1)), and an
     evaluation probe's draws (key, ke = split(key))."""
 
-    def __init__(self, jparams, key, coordinated: bool):
-        self.jparams, self.key, self.coordinated = jparams, key, coordinated
+    def __init__(self, jparams, key, coordinated: bool, algo: str = "qmix"):
+        self.jparams, self.key, self.coordinated, self.algo = jparams, key, coordinated, algo
         self.env_keys = None
         A, n = jparams.num_agents, jparams.num_actions
 
@@ -329,6 +349,7 @@ class JaxMarlDraws:
             return jax.random.uniform(k2, (A,)), jax.random.gumbel(k1, (A, n))
 
         self._act = jax.jit(jax.vmap(one))
+        self._gumbel = jax.jit(jax.vmap(lambda ka: jax.random.gumbel(ka, (A, n))))
 
     def reset(self, B: int):
         from swarm_ode_tpu_torch.convert import env_state_from_numpy
@@ -347,6 +368,8 @@ class JaxMarlDraws:
 
         kas = jax.random.split(self.key, B + 1)
         self.key = kas[0]
+        if self.algo == "coma":
+            return torch.from_numpy(np.array(self._gumbel(kas[1:])))
         u, row = self._act(kas[1:])
         return ActNoise(torch.from_numpy(np.array(u)), torch.from_numpy(np.array(row)))
 
@@ -355,6 +378,11 @@ class JaxMarlDraws:
         idx = jax.random.randint(ks, (batch_size,), 0, max(size, 1))
         return torch.from_numpy(np.array(idx))
 
+    def recent(self, size: int, batch_size: int, window: int) -> torch.Tensor:
+        self.key, ks = jax.random.split(self.key)
+        off = jax.random.randint(ks, (batch_size,), 1, max(min(window, size), 1) + 1)
+        return torch.from_numpy(np.array(off))
+
     def split(self) -> "JaxMarlDraws":
         self.key, ke = jax.random.split(self.key)
-        return JaxMarlDraws(self.jparams, ke, self.coordinated)
+        return JaxMarlDraws(self.jparams, ke, self.coordinated, self.algo)
