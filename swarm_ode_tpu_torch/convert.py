@@ -10,9 +10,10 @@ and is ignored. The GDE's flax parameter tree converts to a state dict of
 `gde_params_to_numpy`), and the trainer's optimizer state to and from
 optax's (clip_by_global_norm, adamw) chain state as numpy
 (`adamw_state_from_numpy`, `adamw_state_to_numpy`). The MARL Q-networks
-(models/hetero_gnn.py, models/gnode.py), the mixers (models/qmix.py) and
-the IQL / QMIX agent states (rl/dqn.DQNState: parameters, target
-parameters, Adam's state, epsilon, step) convert the same way
+(models/hetero_gnn.py, models/gnode.py, models/gru.py), the mixers
+(models/qmix.py) and the IQL / QMIX agent states (rl/dqn.DQNState:
+parameters, target parameters, Adam's state, epsilon, step) convert the
+same way, and so do the trajectory baselines (models/gru.py)
 (`flax_params_to_state_dict`, `qnet_params_to_numpy`,
 `agent_state_from_numpy`, `agent_state_to_numpy`). COMA's actors (the
 encoder and the two heads), its critic and its whole state
@@ -204,14 +205,14 @@ def _nested(state_dict: Mapping[str, torch.Tensor]) -> dict:
 
 def qnet_params_to_numpy(state_dict: Mapping[str, torch.Tensor], net: str) -> dict:
     """The inverse of flax_params_to_state_dict for a Q-network of `net`
-    ('gnn': one flax module, {'params': tree}; 'gnode' / 'gnode_comm': a
-    composite of flax modules, {child: {'params': tree}})."""
+    ('gnn', 'gru': one flax module, {'params': tree}; 'gnode' /
+    'gnode_comm': a composite of flax modules, {child: {'params': tree}})."""
     tree = _nested(state_dict)
-    if net == "gnn":
+    if net in ("gnn", "gru"):
         return {"params": tree}
     if net in ("gnode", "gnode_comm"):
         return {k: {"params": v} for k, v in tree.items()}
-    raise ValueError(f"net must be gnn, gnode or gnode_comm, got {net!r}")
+    raise ValueError(f"net must be gnn, gru, gnode or gnode_comm, got {net!r}")
 
 
 def mixer_params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> dict:

@@ -22,3 +22,29 @@ def dense_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 if m.bias is not None:
                     m.bias.zero_()
     return module
+
+
+def orthogonal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Draws `weight` as flax's `orthogonal()` initialiser draws a kernel: the
+    Q of a QR decomposition of a standard normal matrix, its columns' signs
+    set by R's diagonal (a Haar-distributed orthogonal matrix; the torch
+    weight is the flax kernel transposed, orthogonal alike)."""
+    rows, cols = weight.shape
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=generator,
+                    device=weight.device, dtype=weight.dtype)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    with torch.no_grad():
+        weight.copy_(q.T if rows < cols else q)
+    return weight
+
+
+def recurrent_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """dense_init_, then every recurrent kernel (a Linear whose `recurrent`
+    attribute is set) drawn by `orthogonal_`, as flax's GRUCell and
+    OptimizedLSTMCell draw them; biases stay zero. Returns the module."""
+    dense_init_(module, generator)
+    for m in module.modules():
+        if isinstance(m, nn.Linear) and getattr(m, "recurrent", False):
+            orthogonal_(m.weight, generator)
+    return module

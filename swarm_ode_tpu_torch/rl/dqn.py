@@ -112,10 +112,21 @@ def epsilon_greedy(q, masks, epsilon, noise: Optional[ActNoise], env_params: Env
     return torch.where(noise.explore_u < epsilon, random_actions, greedy)
 
 
-def q_values(net: nn.Module, params: Dict[str, torch.Tensor], graph: HeteroGraph) -> torch.Tensor:
-    """(B, A_total, action_size): the AGVs' then the pickers' Q-values."""
-    out = functional_call(net, params, (graph,))
-    return torch.cat([out["agv_q_values"], out["picker_q_values"]], dim=-2)
+def q_values(net: nn.Module, params: Dict[str, torch.Tensor], graph: HeteroGraph,
+             extras=None) -> torch.Tensor:
+    """(B, A_total, action_size): the AGVs' then the pickers' Q-values.
+    `extras`: a recurrent network's hidden states (agv (B, A, H), picker
+    (B, P, H)), passed after the graph."""
+    return q_values_and_hidden(net, params, graph, extras)[0]
+
+
+def q_values_and_hidden(net: nn.Module, params: Dict[str, torch.Tensor], graph: HeteroGraph,
+                        extras=None):
+    """(q_values, the network's new hidden states (agv, picker), or None for
+    a network without)."""
+    out = functional_call(net, params, (graph,) if extras is None else (graph, *extras))
+    q = torch.cat([out["agv_q_values"], out["picker_q_values"]], dim=-2)
+    return q, (out["agv_hidden"], out["picker_hidden"]) if "agv_hidden" in out else None
 
 
 def obs_q_values(net: nn.Module, params: Dict[str, torch.Tensor], env_params: EnvParams,
@@ -210,27 +221,40 @@ class IQLAgent:
         self.net.init_(generator)
         return fresh_state(module_params(self.net), self.cfg.epsilon_start)
 
-    def q_values(self, params, graph: HeteroGraph) -> torch.Tensor:
-        return q_values(self.net, params, graph)
+    def q_values(self, params, graph: HeteroGraph, extras=None) -> torch.Tensor:
+        """`extras`: the recurrent state of a GRU network (reference
+        gru.py:513-706 stores the hidden states beside the transitions)."""
+        return q_values(self.net, params, graph, extras)
 
     @torch.no_grad()
     def act(self, state: DQNState, graph: HeteroGraph, masks: torch.Tensor,
-            noise: Optional[ActNoise], training: bool = True, active=None) -> torch.Tensor:
+            noise: Optional[ActNoise], training: bool = True, active=None,
+            extras=None) -> torch.Tensor:
         """Masked epsilon-greedy over B envs (reference run_gnode.py:572-612)."""
-        q = self.q_values(state.params, graph)
+        return self.act_and_hidden(state, graph, masks, noise, training, active, extras)[0]
+
+    @torch.no_grad()
+    def act_and_hidden(self, state: DQNState, graph: HeteroGraph, masks: torch.Tensor,
+                       noise: Optional[ActNoise], training: bool = True, active=None,
+                       extras=None):
+        """(act's actions, the network's new hidden states from the same
+        forward pass; None for a network without)."""
+        q, hidden = q_values_and_hidden(self.net, state.params, graph, extras)
         return epsilon_greedy(q, masks, state.epsilon, noise, self.env_params,
-                              self.cfg.coordinated, active, training)
+                              self.cfg.coordinated, active, training), hidden
 
     def loss(self, params, target_params, batch: Dict) -> torch.Tensor:
         """Mean TD loss of a batch: obs_feats / next_feats ({'agv', 'picker',
         'loc'} of (B, ...)), actions and rewards (B, A), dones (B,) and
-        gamma_eff (B,), gamma**m for an m-step return."""
+        gamma_eff (B,), gamma**m for an m-step return; for a GRU network
+        also extras / next_extras, the hidden states (agv, picker) the
+        online and the target network start from."""
         cfg, A = self.cfg, self.env_params.num_agvs
         g = graph_from_feats(self.env_params, batch["obs_feats"])
-        q = self.q_values(params, g)
+        q = self.q_values(params, g, batch.get("extras"))
         with torch.no_grad():
             gn = graph_from_feats(self.env_params, batch["next_feats"])
-            qn = self.q_values(target_params, gn)
+            qn = self.q_values(target_params, gn, batch.get("next_extras"))
             # The bootstrap max runs over valid next actions only.
             qn = torch.where(masks_of(self.env_params, batch["next_feats"]) > 0, qn, -1e9)
             B = batch["actions"].shape[0]

@@ -3,9 +3,10 @@
 Counterpart of `swarm_ode_tpu/rl/replay.py` (init, add, add_batch :53,
 sample, sample_recent, sample_nstep :88, clear), replacing the reference's
 Python deques of PyG graphs (run_gnode.py:1011-1039). An item is a nested
-dict of fixed-shape tensors; the storage holds each leaf as (capacity,
-...) on the items' device, and transitions keep the hetero graph's node
-features only (the adjacency is rebuilt from them at sample time).
+dict of fixed-shape tensors (a GRU network's hidden states are a tuple in
+it); the storage holds each leaf as (capacity, ...) on the items' device,
+and transitions keep the hetero graph's node features only (the adjacency
+is rebuilt from them at sample time).
 
 `ptr` and `size` are host integers: they depend only on how many items were
 written, so a caller can test readiness without reading the device. The
@@ -21,21 +22,23 @@ import torch
 
 
 def _map(fn, *trees):
-    """fn over the leaves of nested dicts of the same structure."""
+    """fn over the leaves of nested dicts and tuples of the same structure."""
     if isinstance(trees[0], dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(_map(fn, *leaves) for leaves in zip(*trees))
     return fn(*trees)
 
 
 def _first_leaf(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
+    while isinstance(tree, (dict, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
     return tree
 
 
 @dataclasses.dataclass
 class ReplayBuffer:
-    storage: Dict[str, Any]  # nested dict of (capacity, ...) tensors
+    storage: Dict[str, Any]  # nested dicts / tuples of (capacity, ...) tensors
     ptr: int  # next write slot
     size: int  # filled slots
 

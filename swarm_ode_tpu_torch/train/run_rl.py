@@ -4,16 +4,19 @@ Counterpart of `swarm_ode_tpu/train/run_rl.py` (RLRunConfig :40,
 _make_network :131, _feats :186, _global_state :191, run_marl :205, its COMA
 branches :263-276, :487, :589-627 and init_q_from :282-304; reference
 run_gnode.py:1328-1531, gru.py:1035-1275, graph.py:632-701) for algo "iql",
-"qmix" and "coma" and net "gnode", "gnode_comm" and "gnn". Per episode
-stride: reset B envs -> observe -> hetero graph -> Q-network (COMA: the
+"qmix" and "coma" and net "gnode", "gnode_comm", "gnn" and "gru" (IQL
+only, as in JAX). Per episode stride: reset B envs -> observe -> hetero graph -> Q-network (COMA: the
 actors) -> masked epsilon-greedy, sampling or the claim auction -> env step
 (the replan query K1 on the card) -> replay -> one IQL or QMIX learn step
 every `learn_every` env steps once the buffer is warm -> target sync -> one
 stat line. COMA is on-policy: after each stride it takes `coma_updates`
 updates, each on a batch sampled from that stride's transitions
-(replay.sample_recent). `init_q_from` warm-starts an IQL or QMIX
-Q-network (and its target) from a behaviour-cloning checkpoint
-(train/train_bc.py).
+(replay.sample_recent). The GRU network's hidden states start at zeros at
+each reset, are carried from step to step (`MarlRun.hidden`), and go into
+replay beside each transition (`extras`, and `next_extras` for the next
+state) for the learn step to start its passes from. `init_q_from`
+warm-starts an IQL or QMIX Q-network (and its target) from a
+behaviour-cloning checkpoint (train/train_bc.py).
 
 The JAX package runs an episode as one `lax.scan` with one transfer to the
 host; here the episode is a Python loop of device work that never waits on
@@ -42,6 +45,7 @@ from swarm_ode_tpu_torch.env.observations import compute_valid_action_masks, obs
 from swarm_ode_tpu_torch.env.state import EnvParams, make_params
 from swarm_ode_tpu_torch.graphs.hetero import hetero_graph_from_obs, split_observation
 from swarm_ode_tpu_torch.models.gnode import HeteroGraphODENetwork
+from swarm_ode_tpu_torch.models.gru import HeteroGraphGRUNetwork
 from swarm_ode_tpu_torch.models.hetero_gnn import HeteroGNNEncoder, HeteroGNNNetwork
 from swarm_ode_tpu_torch.rl import replay
 from swarm_ode_tpu_torch.rl.coma import COMAAgent, COMAConfig, COMAState
@@ -52,7 +56,7 @@ from swarm_ode_tpu_torch.utils.checkpoint import CheckpointManager
 from swarm_ode_tpu_torch.utils.logging import MetricsLogger
 from swarm_ode_tpu_torch.utils.metrics import pick_rate
 
-NETS = ("gnode", "gnode_comm", "gnn")
+NETS = ("gnode", "gnode_comm", "gnn", "gru")
 ALGOS = ("iql", "qmix", "coma")
 
 
@@ -60,7 +64,7 @@ ALGOS = ("iql", "qmix", "coma")
 class RLRunConfig:
     env_id: str = "tarware-medium-19agvs-9pickers-partialobs-v1"
     algo: str = "qmix"  # iql | qmix | coma
-    net: str = "gnode"  # gnode | gnode_comm | gnn
+    net: str = "gnode"  # gnode | gnode_comm | gnn | gru (IQL only)
     num_envs: int = 1  # lockstep envs feeding the shared replay buffer
     num_episodes: int = 100
     hidden_dim: int = 64
@@ -120,8 +124,7 @@ def make_network(cfg: RLRunConfig, action_size: int, coord_scale: float = 1.0):
     if cfg.net == "gnn":
         return HeteroGNNNetwork(action_size, cfg.hidden_dim, coord_scale=coord_scale)
     if cfg.net == "gru":
-        raise ValueError("net='gru' is not ported yet: it comes with models/gru.py and the "
-                         "trajectory baselines (ROADMAP.md queue 1, item 3)")
+        return HeteroGraphGRUNetwork(action_size, cfg.hidden_dim, coord_scale=coord_scale)
     raise ValueError(f"net must be one of {NETS}, got {cfg.net!r}")
 
 
@@ -130,6 +133,9 @@ def _check_supported(cfg: RLRunConfig) -> None:
         raise ValueError(f"algo must be one of {ALGOS}, got {cfg.algo!r}")
     if cfg.init_q_from and cfg.algo not in ("iql", "qmix"):
         raise ValueError("init_q_from supports algo in (iql, qmix)")
+    if cfg.net == "gru" and cfg.algo != "iql":
+        # The reference pairs the GRU network with IQL only (gru.py:1035-1275).
+        raise ValueError("net='gru' currently supports algo='iql'")
 
 
 def agent_params(astate: DQNState) -> Dict[str, torch.Tensor]:
@@ -234,17 +240,22 @@ def batch_from(sampled, algo: str, gamma: float, n_step: int, team_reward: str =
     """A learn batch from replay.sample_nstep's sample: the per-link rewards
     (B, n, A) discounted over the valid links (IQL per agent; QMIX the team
     reward, the agents' mean or sum), gamma_eff = gamma**m for the chain
-    length m."""
+    length m; a GRU network's hidden states (extras, next_extras) pass
+    through."""
     dev = sampled["nstep_valid"].device
     disc = gamma ** torch.arange(n_step, dtype=torch.float32, device=dev)
     valid = sampled["nstep_valid"].to(torch.float32)
     gamma_eff = gamma ** sampled["nstep_m"].to(torch.float32)
     r = sampled["nstep_rewards"]
     if algo == "iql":
-        return {"obs_feats": sampled["obs_feats"], "next_feats": sampled["next_feats"],
-                "actions": sampled["actions"],
-                "rewards": (r * (disc * valid)[:, :, None]).sum(dim=1),
-                "dones": sampled["done"], "gamma_eff": gamma_eff}
+        batch = {"obs_feats": sampled["obs_feats"], "next_feats": sampled["next_feats"],
+                 "actions": sampled["actions"],
+                 "rewards": (r * (disc * valid)[:, :, None]).sum(dim=1),
+                 "dones": sampled["done"], "gamma_eff": gamma_eff}
+        for k in ("extras", "next_extras"):
+            if k in sampled:
+                batch[k] = sampled[k]
+        return batch
     team_k = r.mean(-1) if team_reward == "mean" else r.sum(-1)  # (B, n)
     return {"obs_feats": sampled["obs_feats"], "next_feats": sampled["next_feats"],
             "actions": sampled["actions"], "reward": (team_k * disc * valid).sum(dim=1),
@@ -272,8 +283,10 @@ def load_q_params(astate: DQNState, directory: str, algo: str) -> DQNState:
 
 class MarlRun:
     """One MARL run's pieces: the env params on cfg.device, the agent and
-    its state, the replay buffer, the draws. `episode`, `coma_update` and
-    `eval_probe` never wait on the card; run_marl drives them."""
+    its state, the replay buffer, the draws, and a GRU network's hidden
+    states (`hidden`, None until the first step after a reset: zeros).
+    `episode`, `coma_update` and `eval_probe` never wait on the card;
+    run_marl drives them."""
 
     def __init__(self, cfg: RLRunConfig, draws=None, agent_state=None, verbose: bool = False):
         _check_supported(cfg)
@@ -296,6 +309,8 @@ class MarlRun:
                                                                cfg.coordinated, cfg.algo)
         self.agent, self.net = make_agent(cfg, params)
         self.off_policy = cfg.algo in ("iql", "qmix")
+        self.is_gru = cfg.net == "gru"
+        self.hidden = None
         self.astate = agent_state if agent_state is not None else self.agent.init(generator)
         if cfg.init_q_from:
             self.astate = load_q_params(self.astate, cfg.init_q_from, cfg.algo)
@@ -307,7 +322,7 @@ class MarlRun:
         feats0 = {"agv": torch.zeros(A, 7, **f32), "picker": torch.zeros(P, 4, **f32),
                   "loc": torch.zeros(L, 2, **f32)}
         gs0 = torch.zeros(global_state_dim(params), **f32)
-        self.buf = replay.init({
+        item = {
             "obs_feats": feats0, "next_feats": feats0,
             "actions": torch.zeros(N, dtype=torch.int32, device=dev),
             "rewards": torch.zeros(N, **f32),
@@ -315,7 +330,12 @@ class MarlRun:
             "done": torch.zeros((), dtype=torch.bool, device=dev),
             "_t": torch.zeros((), dtype=torch.int32, device=dev),
             "_ep": torch.zeros((), dtype=torch.int32, device=dev),
-        }, cfg.buffer_size)
+        }
+        if self.is_gru:
+            h0 = tuple(h[0] for h in self.net.init_hidden(1, A, P))
+            item["extras"], item["next_extras"] = h0, h0
+        # Allocated once; add_batch writes into it in place.
+        self.buf = replay.init(item, cfg.buffer_size)
 
     def warm_up(self) -> None:
         """One greedy act and env step of a throwaway env, drawn from a
@@ -328,29 +348,43 @@ class MarlRun:
         p = dataclasses.replace(self.params, replan_mode="off")
         g = torch.Generator(device=self.device).manual_seed(0)
         es = step_mod.reset(p, 1, g)
-        obs = observe(p, es)
-        a = self.agent.act(self.astate, hetero_graph_from_obs(p, obs),
-                           compute_valid_action_masks(p, es), None, active=~es.agent_busy)
+        a, _ = self._act(p, es, observe(p, es), None, None, training=False)
         step_mod.step(p, es, a, generator=g)
+
+    def _act(self, p: EnvParams, es, obs, noise, hidden, training: bool = True):
+        """The agent's actions on observations `obs` of states `es`, and a
+        GRU network's new hidden states from the same pass, from `hidden`
+        (None: zeros); `hidden` unchanged for the other networks."""
+        graph, masks = hetero_graph_from_obs(p, obs), compute_valid_action_masks(p, es)
+        if self.is_gru:
+            return self.agent.act_and_hidden(self.astate, graph, masks, noise, training,
+                                             ~es.agent_busy, hidden)
+        return self.agent.act(self.astate, graph, masks, noise, training=training,
+                              active=~es.agent_busy), hidden
 
     def env_step(self, es, obs, t: int, ep_idx: int):
         """One step of B envs: act, step (K1 on the card), one replay item
-        per env. Returns (state, observations, (5,) per-step sums)."""
+        per env; a GRU network's hidden states carried in `self.hidden`.
+        Returns (state, observations, (5,) per-step sums)."""
         p, B, dev = self.params, es.batch, self.device
         feats = feats_of(p, obs)
-        masks = compute_valid_action_masks(p, es)
-        actions = self.agent.act(self.astate, hetero_graph_from_obs(p, obs), masks,
-                                 self.draws.act(B), active=~es.agent_busy)
+        if self.is_gru and self.hidden is None:
+            self.hidden = self.net.init_hidden(B, p.num_agvs, p.num_pickers)
+        hidden = self.hidden
+        actions, self.hidden = self._act(p, es, obs, self.draws.act(B), hidden)
         es, rew, done, info = step_mod.step(p, es, actions, noise=self.draws.step(B))
         obs = observe(p, es)
         feats2 = feats_of(p, obs)
-        self.buf = replay.add_batch(self.buf, {
+        item = {
             "obs_feats": feats, "next_feats": feats2, "actions": actions, "rewards": rew,
             "global_state": global_state(feats, self.gs_scale),
             "next_global_state": global_state(feats2, self.gs_scale), "done": done,
             "_t": torch.full((B,), t, dtype=torch.int32, device=dev),
             "_ep": torch.full((B,), ep_idx, dtype=torch.int32, device=dev),
-        })
+        }
+        if self.is_gru:
+            item["extras"], item["next_extras"] = hidden, self.hidden
+        self.buf = replay.add_batch(self.buf, item)
         sums = torch.stack([rew.sum()] + [info[k].sum().float() for k in (
             "shelf_deliveries", "clashes", "stucks", "replan_overflow")])
         return es, obs, sums
@@ -375,8 +409,10 @@ class MarlRun:
     def episode(self, es, t0: int, ep_idx: int):
         """One episode from states `es`; a learn step every learn_every env
         steps. Returns (final states, (steps, 5) per-step sums in
-        STEP_STATS order, (blocks,) losses), on the device."""
+        STEP_STATS order, (blocks,) losses), on the device. A GRU network's
+        hidden states start at zeros."""
         obs = observe(self.params, es)
+        self.hidden = None
         outs, losses = [], []
         for tb in range(self.steps // self.learn_every):
             for k in range(self.learn_every):
@@ -411,11 +447,10 @@ class MarlRun:
         obs = observe(p, es)
         ret = torch.zeros((), dtype=torch.float32, device=self.device)
         deliv = torch.zeros_like(ret)
+        hidden = None  # a GRU network's, zeros at the reset
         for _ in range(self.steps):
-            masks = compute_valid_action_masks(p, es)
-            actions = self.agent.act(self.astate, hetero_graph_from_obs(p, obs), masks,
-                                     draws.act(E) if stochastic else None,
-                                     training=stochastic, active=~es.agent_busy)
+            actions, hidden = self._act(p, es, obs, draws.act(E) if stochastic else None,
+                                        hidden, training=stochastic)
             es, rew, _, info = step_mod.step(p, es, actions, noise=draws.step(E))
             obs = observe(p, es)
             ret = ret + rew.sum()

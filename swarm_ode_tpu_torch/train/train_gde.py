@@ -163,15 +163,17 @@ def stack_episodes_streamed(episodes, device_dtype: str):
     return out, dev_dtype
 
 
-def _extract_windows(episodes_dev, positions_dev, seq_len, e_idx, t_idx, horizon: int = 1,
-                     true_len: Optional[int] = None):
+def _extract_windows(episodes_dev, positions_dev, seq_len, e_idx, t_idx, with_pos=False,
+                     horizon: int = 1, true_len: Optional[int] = None):
     """(ep, t) index pairs -> TrajectoryDataset.window's semantics as one
     batched gather on the device: the W frames from start = clip(t-W+1, 0,
     T-W), those after t zeroed (the warm-up), count = min(t+1, W) and the
     next positions. With horizon > 1 the targets are t+1 .. t+horizon of the
     positions (edge-padded by `horizon` frames at upload, so they never run
     past the end) and hweight marks those within the episode's `true_len`.
-    Nothing here synchronises with the host."""
+    With `with_pos` the window's positions (W, N, 2), zeroed alike, come
+    last in place of hweight, as in the JAX function. Nothing here
+    synchronises with the host."""
     W = seq_len
     e, t = e_idx.long(), t_idx.long()
     start = (t - W + 1).clamp(min=0, max=episodes_dev.shape[1] - W)
@@ -181,18 +183,25 @@ def _extract_windows(episodes_dev, positions_dev, seq_len, e_idx, t_idx, horizon
     count = (t + 1).clamp(max=W).to(torch.int32)
     if horizon > 1:
         steps = t[:, None] + 1 + torch.arange(horizon, device=t.device)  # (B, Hz)
+        next_pos = positions_dev[e[:, None], steps]
         hweight = (steps <= true_len - 1).to(torch.float32)
-        return obs_w, count, positions_dev[e[:, None], steps], hweight
-    return obs_w, count, positions_dev[e, t + 1]
+    else:
+        next_pos = positions_dev[e, t + 1]
+    if with_pos:
+        return obs_w, count, next_pos, torch.where(valid, positions_dev[e[:, None], slot_t], 0.0)
+    if horizon > 1:
+        return obs_w, count, next_pos, hweight
+    return obs_w, count, next_pos
 
 
-def window_batch(data, pairs, seq_len: int, horizon: int = 1, true_len=None) -> Dict:
+def window_batch(data, pairs, seq_len: int, horizon: int = 1, true_len=None,
+                 with_pos: bool = False) -> Dict:
     """The loss's batch for (B, 2) (episode, step) pairs on the device,
     cut from `data` ({'episodes', 'positions'} on the device), every window
-    weighted 1."""
+    weighted 1; with `with_pos` the windows' positions as 'pos'."""
     cut = _extract_windows(data["episodes"], data["positions"], seq_len, pairs[:, 0],
-                           pairs[:, 1], horizon=horizon, true_len=true_len)
-    batch = dict(zip(("obs", "count", "next_pos", "hweight"), cut))
+                           pairs[:, 1], with_pos=with_pos, horizon=horizon, true_len=true_len)
+    batch = dict(zip(("obs", "count", "next_pos", "pos" if with_pos else "hweight"), cut))
     batch["weight"] = torch.ones(pairs.shape[0], dtype=torch.float32, device=pairs.device)
     return batch
 

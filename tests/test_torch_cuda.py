@@ -846,3 +846,91 @@ def test_coma_update_card_vs_cpu(cuda, coordinated):
         scale = max(float(v.abs().max()) for v in gr_c[part].values())
         for k, v in gr_c[part].items():
             assert float((gr_g[part][k].cpu() - v).abs().max()) <= 1e-5 * scale, (part, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gru", "lstm", "pos_gru", "pos_lstm"])
+def test_baseline_step_card_vs_cpu(cuda, model):
+    """One baseline loss and its gradients on the card against the CPU from
+    the same parameters and windows (TF32 off): the loss within 1e-5 of
+    itself, each gradient within 1e-5 of its largest element; a train step
+    with host synchronisation forbidden."""
+    import copy
+
+    import numpy as np
+
+    from swarm_ode_tpu_torch.data.dataset import TrajectoryDataset
+    from swarm_ode_tpu_torch.train import train_baselines as tb
+    from swarm_ode_tpu_torch.train import train_gde as tg
+    from swarm_ode_tpu_torch.utils.optim import adamw_init
+
+    rng = np.random.RandomState(0)
+    eps = [rng.randint(0, 9, size=(30, 5, 19)).astype(np.float32) for _ in range(3)]
+    ds = TrajectoryDataset(episodes=eps, num_agvs=3, num_pickers=2, seq_len=5)
+    m_cpu = tb.MODEL_FACTORIES[model](ds, 32).init_(torch.Generator().manual_seed(1))
+    pairs = torch.from_numpy(np.asarray(ds._index, np.int32)[rng.choice(len(ds), 16)])
+    out = {}
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(m_cpu).to(dev)
+        data = {"episodes": torch.from_numpy(np.stack(eps)).to(dev),
+                "positions": torch.from_numpy(np.stack(ds._positions)).to(dev)}
+        loss = tb.baseline_loss(m, model.startswith("pos_"))(
+            tg.window_batch(data, pairs.to(dev), 5, with_pos=True))
+        out[dev] = (loss.detach(), torch.autograd.grad(loss, list(m.parameters())), m, data)
+    (lc, gc, _, _), (lg, gg, m, data) = out["cpu"], out[cuda]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(gg, gc):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    params = list(m.parameters())
+    cfg = tb.BaselineTrainConfig(model=model)
+    loss_fn = tb.baseline_loss(m, model.startswith("pos_"))
+    p = pairs.to(cuda)
+    tg.train_step(params, adamw_init(params), loss_fn,
+                  tg.window_batch(data, p, 5, with_pos=True), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tg.train_step(params, adamw_init(params), loss_fn,
+                      tg.window_batch(data, p, 5, with_pos=True), cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_gru_marl_on_the_card(cuda, tmp_path):
+    """run_marl(algo="iql", net="gru") on the card: one stride of 2 tiny
+    envs with host synchronisation forbidden in the episode, K1 once a step
+    and no overflow, the hidden states in replay; the greedy evaluation
+    from the checkpoint restores the agent bit for bit; the served policy
+    launches K1 once a step."""
+    import dataclasses
+
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.observations import observe
+    from swarm_ode_tpu_torch.serving import make_policy_fn
+    from swarm_ode_tpu_torch.train import run_rl
+
+    tiny = "tarware-tiny-3agvs-2pickers-partialobs-v1"
+    cfg = run_rl.RLRunConfig(env_id=tiny, algo="iql", net="gru", num_envs=2, num_episodes=2,
+                             hidden_dim=16, batch_size=16, buffer_size=2000,
+                             checkpoint_dir=str(tmp_path), checkpoint_every=2,
+                             forbid_host_sync=True)
+    bfs_bitpack.LAUNCHES = 0
+    out = run_rl.run_marl(cfg, verbose=False)
+    h = out["history"][0]
+    assert bfs_bitpack.LAUNCHES == 500 and h["replan_overflow"] == 0 and h["loss"] != 0.0
+    assert out["buffer"].storage["next_extras"][0][:1000].abs().max() > 0
+    ev = run_rl.run_marl(run_rl.RLRunConfig(env_id=tiny, algo="iql", net="gru", num_envs=2,
+                                            num_episodes=0, hidden_dim=16, eval_episodes=2,
+                                            resume_from=str(tmp_path)), verbose=False)
+    for k, v in out["agent_state"].params.items():
+        assert torch.equal(ev["agent_state"].params[k], v), k
+    pp = run_rl.MarlRun(dataclasses.replace(cfg, checkpoint_dir=None, buffer_size=8)).params
+    net = run_rl.make_network(cfg, pp.num_actions, 1.0 / max(pp.grid_h, pp.grid_w)).to(cuda)
+    policy = make_policy_fn(pp, net, run_rl.agent_params(out["agent_state"]))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    s = step_mod.reset(pp, 2, g)
+    bfs_bitpack.LAUNCHES = 0
+    for _ in range(20):
+        s = step_mod.step(pp, s, policy(observe(pp, s)), generator=g)[0]
+    assert bfs_bitpack.LAUNCHES == 20

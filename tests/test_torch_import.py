@@ -66,6 +66,8 @@ SLICE_MODULES = (
     "swarm_ode_tpu_torch.rl.draws",
     "swarm_ode_tpu_torch.rl.ppo",
     "swarm_ode_tpu_torch.train.train_bc",
+    "swarm_ode_tpu_torch.models.gru",
+    "swarm_ode_tpu_torch.train.train_baselines",
 )
 # Modules a fresh interpreter must not load when it imports the port: JAX,
 # the JAX package and its training stack, h5py (needed only to decode or
@@ -239,6 +241,22 @@ def test_marl_runs_on_the_card_by_default():
                              num_episodes=0, hidden_dim=8)
     assert cfg.device == "cuda"
     assert inspect.signature(run_rl.main).parameters["argv"].default is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="card"):
+            run_rl.run_marl(cfg, verbose=False)
+
+
+def test_recurrent_paths_run_on_the_card_by_default():
+    """BaselineTrainConfig (so train_baseline and its CLI) defaults to the
+    card, and so does run_marl with net="gru"; without one, both raise
+    rather than falling back to the CPU."""
+    from swarm_ode_tpu_torch.train import run_rl, train_baselines
+
+    assert train_baselines.BaselineTrainConfig().device == "cuda"
+    assert inspect.signature(train_baselines.main).parameters["argv"].default is None
+    cfg = run_rl.RLRunConfig(env_id="tarware-tiny-3agvs-2pickers-partialobs-v1", algo="iql",
+                             net="gru", num_episodes=0, hidden_dim=8)
+    assert cfg.device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="card"):
             run_rl.run_marl(cfg, verbose=False)

@@ -119,7 +119,7 @@ def test_served_policy_matches_jax(net):
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="net='gru' currently supports algo='iql'"):
         run_rl.run_marl(run_rl.RLRunConfig(**{**LOOP, "net": "gru"}, device="cpu"),
                         verbose=False)
     with pytest.raises(ValueError, match="init_q_from supports"):
