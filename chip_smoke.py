@@ -111,11 +111,12 @@ Phases, one line of output each (any failure exits non-zero):
      busy share of a traced block; the greedy evaluation (8 envs x 500
      steps) resuming from the run's checkpoint, the agent restored bit for
      bit; make_policy_fn(coordinated=True) serving the trained Q-network
-     over one medium episode; K1's launches on each path;
+     over 200 steps of a medium episode; K1's launches on each path;
  14. learning from the dispatcher and on-policy MARL, at the width of
      experiments/medium_bc.py, medium_dagger.py, medium_mappo.py and
-     medium_coma_curve.py (net gnode, hidden 64, 8 medium envs of 500
-     steps): 8 expert episodes recorded in memory by collect_batch (the
+     medium_coma_curve.py (net gnode, hidden 64, 8 medium envs; episodes
+     cut to 100 steps, COMA's stride excepted, 500): 8 expert episodes
+     recorded in memory by collect_batch (the
      card's host has no h5py); train_bc on them for 2 epochs at batch 64,
      the loss finite and falling, the best epoch's checkpoint read back bit
      for bit; one DAgger round (collect_dagger over 8 episodes at beta 0.25,
@@ -152,8 +153,29 @@ Phases, one line of output each (any failure exits non-zero):
      cells trained; marl_env_steps_per_sec, ms per learn step, bytes an
      item, peak memory, busy share; the greedy evaluation (8 envs x 500
      steps) resuming from the run's checkpoint, the agent restored bit for
-     bit (K1 500); make_policy_fn serving the trained GRU Q-network over one
-     medium episode (K1 500).
+     bit (K1 500); make_policy_fn serving the trained GRU Q-network over 200
+     steps of a medium episode (K1 200);
+ 16. export and the committed artifacts: each of the four committed
+     dispatch policies (QMIX gnode, medium and large, greedy; the DAgger
+     clones, gnn, medium and large, T = 3.0) built on the card from its
+     committed weights (convert.committed_params), exported
+     (serving.export_policy) on the card and on the CPU, both artifacts
+     loaded on the card (serving.load_policy): on 16 observations of a
+     seeded rollout of its env (64 for the QMIX medium policy), their
+     actions equal the direct policy's on the card and the port's on the
+     CPU, bit for bit (the clones given the same Gumbels), a loaded call
+     with host synchronisation forbidden; the loaded QMIX medium artifact
+     exported on the card drives 64 medium envs for one episode (replan
+     compaction off), counts zeroed before and read after (K1 500 times,
+     overflow 0), deliveries per env and ms a step; the flagship
+     GDE (gde_medium_h4w's weights) exported on the card for batches of 512
+     windows, loaded on the card, serving phase 8's 50 batches of windows
+     (the same rollout) with K4's count zeroed before and read after (600:
+     the exported program calls K4 as the custom op), its predictions
+     within 1e-4 of the largest against the eager predictor on the card and
+     the port on the CPU (8 windows), a loaded call with host
+     synchronisation forbidden; ms per batch of the predictor, loaded beside
+     eager; each export's seconds (trace and save) and the phase's.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `bound_ms` is the least time the
@@ -253,7 +275,12 @@ MARL_TRACE_STEPS, MARL_LEARN_REPS = 5, 20
 # round at beta 0.25 then 1 epoch; MAPPO ppo_epochs 2, minibatch 128; COMA
 # batch 64, buffer 50,000, 8 updates a stride, learn_every 4. The MAPPO
 # collection's busy share from a traced collection of LFE_TRACE_STEPS steps.
+# Every rollout of the phase but COMA's stride (run_marl's episode is the
+# config's 500 steps) runs LFE_STEPS steps, and the served trained policies
+# of the marl and recurrent phases SERVED_STEPS: depth cut so that the whole
+# script keeps within its time (the medium episode is 500).
 LFE_ENVS, LFE_HIDDEN, BC_BATCH, BC_EPOCHS, DAGGER_BETA = 8, 64, 64, 2, 0.25
+LFE_STEPS, SERVED_STEPS = 100, 200
 MAPPO_EPOCHS, MAPPO_MINIBATCH = 2, 128
 COMA_BATCH, COMA_BUFFER, COMA_UPDATES, COMA_LEARN_EVERY = 64, 50_000, 8, 4
 LFE_TRACE_STEPS = 5
@@ -267,6 +294,14 @@ LFE_TRACE_STEPS = 5
 # GRU_CHECK_STEPS env steps, with the MARL tolerances.
 BASE_ENVS, BASE_STEPS, BASE_EPOCHS, BASE_HIDDEN, BASE_BATCH, BASE_REPS = 8, 100, 3, 128, 32, 10
 GRU_ENVS, GRU_HIDDEN, GRU_BATCH, GRU_BUFFER, GRU_CHECK_STEPS = 8, 256, 32, 20_000, 20
+# Export and the committed artifacts: the four committed dispatch policies,
+# each exported on the card and on the CPU and held on EXPORT_OBS
+# observations of a seeded rollout of its env (SERVED_POLICY on SERVE_ENVS);
+# SERVED_POLICY's card artifact then drives SERVE_ENVS medium envs for an
+# episode (scripts/serve_policy.py's loop, batched).
+POLICY_BLOBS = ("policy_qmix_coordtrain20k", "policy_qmix_large_coordtrain",
+                "policy_dagger_clone_r4", "policy_dagger_clone_large_r4")
+SERVED_POLICY, EXPORT_OBS, SERVE_ENVS = "policy_qmix_coordtrain20k", 16, 64
 # Card against CPU for one MAPPO minibatch: a collection of this many steps
 # (8 envs: 160 samples, of which the minibatch takes 128).
 MAPPO_CHECK_STEPS = 20
@@ -2028,7 +2063,7 @@ def phase_marl(layout_cache, smi):
     learning, ms per learn step, peak memory, busy share; the greedy
     evaluation (8 envs x 500 steps) resuming from the run's checkpoint,
     which must restore the agent bit for bit; make_policy_fn(coordinated)
-    serving the trained Q-network over one medium episode. Returns
+    serving the trained Q-network over SERVED_STEPS steps. Returns
     (K1 launches by path, the numbers printed)."""
     import dataclasses as dc
     import tempfile
@@ -2165,7 +2200,7 @@ def phase_marl(layout_cache, smi):
         eh = ev["history"][0]
 
     # The trained Q-network served through make_policy_fn (claim auction)
-    # over one medium episode.
+    # over SERVED_STEPS steps of a medium episode.
     net = run_rl.make_network(cfg, pp.num_actions,
                               1.0 / max(pp.grid_h, pp.grid_w)).to(pp.device)
     policy = make_policy_fn(pp, net, run_rl.agent_params(trained), coordinated=True)
@@ -2175,21 +2210,22 @@ def phase_marl(layout_cache, smi):
     bfs_bitpack.LAUNCHES = 0
     deliv = torch.zeros((), device=pp.device)
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for _ in range(SERVED_STEPS):
         a = policy(observe(pp, s))
         s, _, _, info = step_mod.step(pp, s, a, generator=g)
         deliv += info["shelf_deliveries"].sum()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches["policy served"] = bfs_bitpack.LAUNCHES
-    if launches["policy served"] != steps:
+    if launches["policy served"] != SERVED_STEPS:
         fail("marl", f"served policy: K1 launched {launches['policy served']} times")
     say("marl", f"greedy evaluation resumed from the checkpoint (agent state restored bit for "
         f"bit): {MARL_ENVS} envs x {steps} steps in {eval_s:.2f} s, deliveries "
         f"{eh['eval_deliveries']:.2f} an env, return {eh['eval_return']:.2f}; "
-        f"make_policy_fn(coordinated=True) serving the trained Q-network over one medium "
-        f"episode: {int(deliv)} deliveries, {1e3 * serve_s / steps:.3f} ms a step; K1 launches "
-        f"by path {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+        f"make_policy_fn(coordinated=True) serving the trained Q-network over "
+        f"{SERVED_STEPS} steps of a medium episode: {int(deliv)} deliveries, "
+        f"{1e3 * serve_s / SERVED_STEPS:.3f} ms a step; K1 launches by path {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
     out.update(checks, env_steps_per_sec=rate, ms_per_step=wall_step, learn_ms=learn_ms,
                peak_gib=peak_gb, busy_share=busy_step / wall_step, buffer_gb=buf_gb)
     return launches, out
@@ -2399,12 +2435,12 @@ def phase_learn_from_expert(layout_cache, smi):
     from swarm_ode_tpu_torch.utils.checkpoint import CheckpointManager
 
     cfg_env, lay, pp = layout_cache["medium"]
-    E, T = LFE_ENVS, cfg_env.max_steps
+    E, T = LFE_ENVS, LFE_STEPS
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(13)
     launches, out = {}, {}
 
-    def counted(what, fn):
+    def counted(what, fn, steps=T):
         """fn() with K1's count zeroed before and read after, synchronised;
         (its result, its seconds)."""
         torch.cuda.synchronize()
@@ -2413,8 +2449,8 @@ def phase_learn_from_expert(layout_cache, smi):
         res = fn()
         torch.cuda.synchronize()
         launches[what] = bfs_bitpack.LAUNCHES
-        if launches[what] != T:
-            fail("learn", f"{what}: K1 launched {launches[what]} times in {T} steps")
+        if launches[what] != steps:
+            fail("learn", f"{what}: K1 launched {launches[what]} times in {steps} steps")
         return res, time.perf_counter() - t0
 
     # 1. The dispatcher's decisions, in memory.
@@ -2446,7 +2482,7 @@ def phase_learn_from_expert(layout_cache, smi):
         # 3. One DAgger round.
         (o, a, b, dst), dag_s = counted("dagger collection", lambda: bc.collect_dagger(
             pp, lay, net, clone["params"], E, gen, beta=DAGGER_BETA, coordinated=True,
-            with_stats=True))
+            steps=T, with_stats=True))
         if dst["replan_overflow"] or o.shape != (T * E,) + arrays[0].shape[1:] or (
                 o.dtype != np.float16) or not np.isfinite(o.astype(np.float32)).all():
             fail("learn", f"DAgger collection: overflow {dst['replan_overflow']}, observations "
@@ -2462,14 +2498,14 @@ def phase_learn_from_expert(layout_cache, smi):
             fail("learn", f"DAgger retraining loss {dagger['history'][0]['train_loss']}")
         # 4. Evaluation of the DAgger clone through the claim auction.
         ev, eval_s = counted("clone evaluation", lambda: bc.evaluate_policy(
-            pp, net, dagger["params"], E, gen, coordinated=True, verbose=False))
+            pp, net, dagger["params"], E, gen, coordinated=True, verbose=False, steps=T))
         if ev["replan_overflow"]:
             fail("learn", f"evaluation: overflow {ev['replan_overflow']}")
         # 5. MAPPO warm-started from the clone.
         mcfg = ppo.MAPPOConfig(env_id=MEDIUM, net="gnode", hidden_dim=LFE_HIDDEN, num_envs=E,
                                num_strides=1, ppo_epochs=MAPPO_EPOCHS, minibatch=MAPPO_MINIBATCH,
                                coordinated=True, init_from=bc_dir, seed=0,
-                               forbid_host_sync=True)
+                               forbid_host_sync=True, steps_override=T)
         mrun = ppo.MappoRun(mcfg)
         if not all(torch.equal(mrun.actor_params[k], v) for k, v in saved["q_params"].items()):
             fail("learn", "MAPPO's actor before its first update differs from the checkpoint")
@@ -2500,7 +2536,8 @@ def phase_learn_from_expert(layout_cache, smi):
             forbid_host_sync=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cres, coma_s = counted("coma stride", lambda: run_rl.run_marl(ccfg, verbose=False))
+        cres, coma_s = counted("coma stride", lambda: run_rl.run_marl(ccfg, verbose=False),
+                               cfg_env.max_steps)
         coma_peak = torch.cuda.max_memory_allocated() / 2**30
         ch = cres["history"][0]
         if ch["replan_overflow"] or not np.isfinite([ch["critic_loss"], ch["actor_loss"]]).all():
@@ -2508,7 +2545,7 @@ def phase_learn_from_expert(layout_cache, smi):
                  f"{ch['critic_loss']}, actor loss {ch['actor_loss']}")
         if int(cres["agent_state"].step) != COMA_UPDATES:
             fail("learn", f"COMA took {int(cres['agent_state'].step)} updates")
-        coma_rate = E * T / ch["episode_seconds"]
+        coma_rate = E * cfg_env.max_steps / ch["episode_seconds"]
         coma_update_ms = 1e3 * ch["coma_update_seconds"] / COMA_UPDATES
         # 7. QMIX built with init_q_from the clone.
         qrun = run_rl.MarlRun(run_rl.RLRunConfig(
@@ -2940,7 +2977,7 @@ def phase_recurrent(layout_cache, smi):
         eh = ev["history"][0]
 
     # The trained GRU Q-network served through make_policy_fn (zero hidden
-    # states each call) over one medium episode.
+    # states each call) over SERVED_STEPS steps of a medium episode.
     net = run_rl.make_network(cfg, pp.num_actions,
                               1.0 / max(pp.grid_h, pp.grid_w)).to(pp.device)
     policy = make_policy_fn(pp, net, run_rl.agent_params(trained))
@@ -2950,26 +2987,201 @@ def phase_recurrent(layout_cache, smi):
     bfs_bitpack.LAUNCHES = 0
     deliv = torch.zeros((), device=pp.device)
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for _ in range(SERVED_STEPS):
         a = policy(observe(pp, s))
         s, _, _, info = step_mod.step(pp, s, a, generator=g)
         deliv += info["shelf_deliveries"].sum()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches["gru policy served"] = bfs_bitpack.LAUNCHES
-    if launches["gru policy served"] != steps or not torch.isfinite(deliv):
+    if launches["gru policy served"] != SERVED_STEPS or not torch.isfinite(deliv):
         fail("recurrent", f"served GRU policy: K1 launched {launches['gru policy served']} times")
     say("recurrent", f"greedy evaluation resumed from the checkpoint (agent state restored bit "
         f"for bit): {GRU_ENVS} envs x {steps} steps in {eval_s:.2f} s, deliveries "
         f"{eh['eval_deliveries']:.2f} an env, return {eh['eval_return']:.2f}; "
-        f"make_policy_fn serving the trained GRU Q-network over one medium episode: "
-        f"{int(deliv)} deliveries, {1e3 * serve_s / steps:.3f} ms a step; K1 launches by path "
+        f"make_policy_fn serving the trained GRU Q-network over {SERVED_STEPS} steps of a "
+        f"medium episode: {int(deliv)} deliveries, {1e3 * serve_s / SERVED_STEPS:.3f} ms a "
+        f"step; K1 launches by path "
         f"{launches}; phase {time.perf_counter() - t_phase:.1f} s")
     out.update(card_vs_cpu=checks, env_steps_per_sec=rate, ms_per_step=wall_step,
                learn_ms=learn_ms, peak_gib=peak_gb, busy_share=busy_step / wall_step,
                buffer_gb=buf.nbytes() / 1e9, item_bytes=item_bytes)
     return launches, out
 
+
+
+def phase_export(layout_cache, smi):
+    """Export and the committed artifacts on the card (see the docstring's
+    phase 16). Returns (K1's launches in the served rollout, K4's in the
+    served GDE batches)."""
+    import torch
+
+    from swarm_ode_tpu_torch import convert, serving
+    from swarm_ode_tpu_torch.config import EnvConfig
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.env.layout import build_layout
+    from swarm_ode_tpu_torch.env.observations import observe
+    from swarm_ode_tpu_torch.env.state import make_params
+    from swarm_ode_tpu_torch.graphs import temporal
+    from swarm_ode_tpu_torch.models.gde import GraphODE
+    from swarm_ode_tpu_torch.ops import bfs_bitpack, segment_pallas
+    from swarm_ode_tpu_torch.policies.heuristic import heuristic_rollout, init_state, make_policy
+    from swarm_ode_tpu_torch.train.run_rl import RLRunConfig, make_network
+
+    t_phase = time.perf_counter()
+    trace_s = {}
+
+    def exported(what, export):
+        """export()'s bytes; its seconds (the trace and the save) in trace_s."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = export()
+        trace_s[what] = round(time.perf_counter() - t0, 1)
+        return blob
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def committed_policy(name, pp, device):
+        meta, sd = convert.committed_params(name, device=device)
+        net = make_network(RLRunConfig(net=meta["net"], hidden_dim=meta["hidden_dim"]),
+                           pp.num_actions, 1.0 / max(pp.grid_h, pp.grid_w)).to(device)
+        return meta, serving.make_policy_fn(pp, net, sd, meta["coordinated"], meta["temperature"])
+
+    # 1. Each committed policy exported on the card and on the CPU, both
+    # artifacts loaded on the card, against the direct policy on the card and
+    # the port on the CPU.
+    for name in POLICY_BLOBS:
+        cfg = EnvConfig.from_env_id(convert.committed_params(name, device="cpu")[0]["env_id"])
+        lay = build_layout(cfg)
+        pp, pp_cpu = make_params(cfg, lay, "cuda"), make_params(cfg, lay, "cpu")
+        meta, policy = committed_policy(name, pp, "cuda")
+        _, policy_cpu = committed_policy(name, pp_cpu, "cpu")
+        # The served policy's artifacts take the served rollout's batch.
+        n_obs = SERVE_ENVS if name == SERVED_POLICY else EXPORT_OBS
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        obs = observe(pp, heuristic_rollout(pp, lay, n_obs, 40, gen).state)
+        stochastic = meta["temperature"] > 0
+        draws = ()
+        if stochastic:
+            draws = (step_mod.draw_gumbel((*obs.shape[:-1], pp.num_actions),
+                                          torch.Generator().manual_seed(32), "cpu").cuda(),)
+        on_card = serving.load_policy(exported(f"{name}, card", lambda: serving.export_policy(
+            policy, obs, stochastic)))
+        from_cpu = serving.load_policy(exported(f"{name}, CPU", lambda: serving.export_policy(
+            policy_cpu, obs.cpu(), stochastic)))
+        direct = policy(obs, *draws)
+        port_cpu = policy_cpu(obs.cpu(), *(d.cpu() for d in draws))
+        got = [no_sync(lambda: f(obs, *draws)) for f in (on_card, from_cpu)]
+        torch.cuda.synchronize()
+        same = [torch.equal(g, direct) for g in got] + [torch.equal(direct.cpu(), port_cpu)]
+        say("export", f"{name} ({meta['env_id']}, {meta['net']}, T = {meta['temperature']}"
+            f"{', the same Gumbels' if stochastic else ''}), {n_obs} observations: loaded "
+            f"artifacts exported on the card / on the CPU equal the direct policy on the card "
+            f"{same[:2]}, the card equals the port on the CPU {same[2]} ({int((direct > 0).sum())} "
+            f"actions not noop); loaded calls with host syncs forbidden; export s on the card "
+            f"{trace_s[f'{name}, card']}, on the CPU {trace_s[f'{name}, CPU']}")
+        if not all(same):
+            fail("export", f"{name}: loaded artifacts or the card differ from the direct policy")
+        if name == SERVED_POLICY:
+            served = on_card
+
+    # 2. The served policy's loaded card artifact drives SERVE_ENVS medium
+    # envs for one episode, with the replan compaction off (replan_row_frac
+    # 1.0: every needed row runs, in K1 once a step): the default budget,
+    # sized for the dispatcher, overflowed 505 rows in 500 steps under this
+    # policy at B = 64 (this phase on an H100 with the default). The
+    # artifact holds no replan setting (the env step is outside it).
+    _, lay, _ = layout_cache["medium"]
+    pp = make_params(EnvConfig.from_env_id(MEDIUM, replan_row_frac=1.0), lay, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    es = step_mod.reset(pp, SERVE_ENVS, gen)
+    T = pp.max_steps
+    deliv = torch.zeros(SERVE_ENVS, device="cuda")
+    overflow = torch.zeros((), dtype=torch.int64, device="cuda")
+    served(observe(pp, es))  # warm-up: the loaded module's first call
+    torch.cuda.synchronize()
+    bfs_bitpack.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(T):
+        es, _, _, info = step_mod.step(pp, es, served(observe(pp, es)), generator=gen)
+        deliv += info["shelf_deliveries"]
+        overflow += info["replan_overflow"].sum()
+    torch.cuda.synchronize()
+    serve_ms = 1e3 * (time.perf_counter() - t0) / T
+    k1 = bfs_bitpack.LAUNCHES
+    say("export", f"loaded {SERVED_POLICY} artifact serving {SERVE_ENVS} medium envs x {T} "
+        f"steps (replan_row_frac 1.0): K1 launches {k1}, overflow {int(overflow)}, deliveries "
+        f"per env mean {float(deliv.mean()):.2f} (min {float(deliv.min()):.0f}, max "
+        f"{float(deliv.max()):.0f}), {serve_ms:.3f} ms a step")
+    if k1 != T or int(overflow) != 0 or not bool(torch.isfinite(deliv).all()):
+        fail("export", f"served rollout: K1 launched {k1} times in {T} steps, overflow "
+             f"{int(overflow)}")
+
+    # 3. The flagship GDE exported on the card, serving phase 8's windows.
+    _, lay, pp = layout_cache["medium"]
+    meta, sd = convert.committed_params("gde_medium_h4w")
+    _, sd_cpu = convert.committed_params("gde_medium_h4w", device="cpu")
+    A, D = pp.num_agents, meta["obs_dim"]
+    model_args = (D, pp.num_agvs, pp.num_pickers, meta["hidden_dim"], "euler")
+    predict = serving.make_gde_fn(GraphODE(*model_args).cuda(), sd, 5.0, meta["horizon"])
+    predict_cpu = serving.make_gde_fn(GraphODE(*model_args), sd_cpu, 5.0, meta["horizon"])
+    loaded = serving.load_gde(exported(f"gde_medium_h4w, card, B = {GDE_BATCH}",
+                                       lambda: serving.export_gde(predict, WINDOW, A, D,
+                                                                  batch=GDE_BATCH)))
+    policy = make_policy(pp, lay)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    es, h = step_mod.reset(pp, GDE_BATCH, gen), init_state(pp, GDE_BATCH)
+    w = temporal.init_window(GDE_BATCH, WINDOW, A, D, device="cuda")
+    windows = []
+    for t in range(WINDOW + 2 + GDE_STEPS):  # phase 8's warm-up, then its served steps
+        actions, h = policy(pp, es, h)
+        es, _, _, _ = step_mod.step(pp, es, actions, generator=gen)
+        w = temporal.push_frame(w, observe(pp, es))
+        if t >= WINDOW + 2:
+            windows.append(w)
+
+    def serve_all(fn):
+        preds, ms = [], []
+        for win in windows:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds.append(fn(win.obs, win.count))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return preds, sum(ms) / len(ms)
+
+    for fn in (loaded, predict):  # warm-up
+        fn(windows[0].obs, windows[0].count)
+    torch.cuda.synchronize()
+    segment_pallas.LAUNCHES = 0
+    got, loaded_ms = serve_all(loaded)
+    k4 = segment_pallas.LAUNCHES
+    ref, eager_ms = serve_all(predict)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    scale = max(float(b.abs().max()) for b in ref)
+    cpu_ref = predict_cpu(windows[-1].obs[:8].cpu(), windows[-1].count[:8].cpu())
+    cpu_err = float((got[-1][:8].cpu() - cpu_ref).abs().max())
+    no_sync(lambda: loaded(windows[0].obs, windows[0].count))
+    tol = 1e-4 * max(1.0, scale)
+    say("export", f"loaded gde_medium_h4w artifact (committed weights) over phase 8's "
+        f"{GDE_STEPS} batches of {GDE_BATCH} windows: K4 launches {k4}; predictor ms per batch "
+        f"loaded {loaded_ms:.3f} (gde_windows_per_sec {GDE_BATCH / loaded_ms * 1e3:.1f}), eager "
+        f"{eager_ms:.3f} ({GDE_BATCH / eager_ms * 1e3:.1f}); loaded vs eager on the card max abs "
+        f"err {err:.3e}, vs the port on the CPU (8 windows) {cpu_err:.3e}, on predictions up to "
+        f"{scale:.2f} (tolerance {tol:.2e}: 1e-4 of the largest); a loaded call with host syncs "
+        f"forbidden; export s (trace and save) {trace_s}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if k4 != GDE_STEPS * meta["horizon"] * 3:
+        fail("export", f"K4 launched {k4} times in {GDE_STEPS} served batches")
+    if not (err <= tol and cpu_err <= tol) or got[-1].shape != (GDE_BATCH, HORIZON + 1, A, 2):
+        fail("export", "loaded GDE predictions differ from the eager predictor or the CPU")
+    return k1, k4
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -2995,6 +3207,7 @@ def main() -> None:
     k1_marl, _ = phase_marl(layouts, smi)
     k1_learn, _ = phase_learn_from_expert(layouts, smi)
     k1_recurrent, _ = phase_recurrent(layouts, smi)
+    k1_export, k4_export = phase_export(layouts, smi)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
     def entry(k, name, replaces, setting):
@@ -3015,7 +3228,7 @@ def main() -> None:
     k1["launches_by_path"] = {
         "main path rollout": by_setting["bitpack32"]["K1"], "datagen": k1_datagen,
         "stochastic expert (card vs CPU)": k1_stochastic, **k1_env_api, **k1_marl,
-        **k1_learn, **k1_recurrent}
+        **k1_learn, **k1_recurrent, "exported policy served": k1_export}
 
     planned, narrow = k4[435], k4[HIDDEN]
     record = {"kernels": [
@@ -3041,7 +3254,8 @@ def main() -> None:
          # The training slice's path, counted in two runs: train_gde (none:
          # it aggregates structurally), then one served batch of its weights.
          "launches_by_path": {"GDE serving": k4_launches, "GDE training": k4_training,
-                              "trained weights served": k4_trained},
+                              "trained weights served": k4_trained,
+                              "exported GDE served": k4_export},
          "max_abs_err": max(planned["max_abs_err"], narrow["max_abs_err"]),
          "ms": planned["ms"], "trace_ms": planned["trace_ms"], "plain_ms": planned["plain_ms"],
          "bound_ms": planned["bound_ms"],

@@ -22,7 +22,12 @@ Ported so far:
     graph-ODE Q-networks and the QMIX mixers (`models/hetero_gnn.py`,
     `models/gnode.py`, `models/qmix.py`), n-step replay, the claim auction,
     IQL and QMIX (`rl/`), `train/run_rl.run_marl` with its CLI, and
-    `serving.make_policy_fn`.
+    `serving.make_policy_fn`;
+  * export: `serving.export_policy` / `export_gde` (torch.export, K4 as the
+    custom op `swarm_ode_tpu_torch::segment_sum_planned`), `load_policy` /
+    `load_gde`, episodes served from an artifact file (`python -m
+    swarm_ode_tpu_torch.serving`), and the committed serving blobs'
+    weights (`weights/*.npz`, `convert.committed_params`).
 The kernels' sources are under csrc/.
 
 This package imports torch and numpy and never jax. Importing it builds
@@ -30,6 +35,7 @@ nothing; the CUDA kernels are compiled at first use on a GPU.
 
 A function that takes a `device` (`env.state.make_params`, `make`,
 `graphs.temporal.init_window`, the `convert.*_from_numpy` loaders,
+`convert.committed_params`, `serving.load_policy` / `load_gde`,
 `train.train_gde.train_gde`, `data.collect.collect_data`, `entry.entry`;
 and `train.run_rl.run_marl` through `RLRunConfig.device`) puts its tensors
 on the card unless the caller passes `device="cpu"`; without a card such a

@@ -19,11 +19,15 @@ same way, and so do the trajectory baselines (models/gru.py)
 encoder and the two heads), its critic and its whole state
 (`coma_state_from_numpy`, `coma_state_to_numpy`), MAPPO's actor and
 `ValueNet` critic (`mappo_params_from_numpy`) and optax's Adam state in
-either layout (`adam_state_from_numpy`) convert the same way.
+either layout (`adam_state_from_numpy`) convert the same way. The weights
+of the five committed serving blobs (results_data/*.stablehlo) ship as
+`weights/<blob>.npz`, read by `committed_params`.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -34,6 +38,13 @@ from swarm_ode_tpu_torch.policies.heuristic import HeuristicState
 from swarm_ode_tpu_torch.rl.coma import COMAState
 from swarm_ode_tpu_torch.rl.dqn import DQNState
 from swarm_ode_tpu_torch.utils.optim import AdamWState
+
+
+# The committed blobs' weights: the flax tree's leaves under '/'-joined paths
+# and `meta`, the blob's .stablehlo.json fields (JSON) with its sha256 and
+# `zeroed`, the leaves the blob does not hold, stored as zeros
+# (tests/torch_port_helpers.write_committed_weights writes them).
+WEIGHTS_DIR = pathlib.Path(__file__).resolve().parent / "weights"
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -340,3 +351,24 @@ def mappo_params_from_numpy(actor_tree: Mapping, critic_tree: Mapping,
     order of its names (rl/ppo.MappoRun's), which must match the tree's."""
     return (_ordered(flax_params_to_state_dict(actor_tree, device), actor_names),
             _ordered(flax_params_to_state_dict(critic_tree, device), critic_names))
+
+
+def committed_params(name: str, device="cuda"):
+    """(meta, state dict) of a committed serving blob's weights,
+    `weights/<name>.npz`: for `gde_medium_h4w` a GDE state dict
+    (models/gde.GraphODE), for a policy its network's (`meta["net"]`, the
+    port's make_network family)."""
+    tree = {}
+    with np.load(WEIGHTS_DIR / f"{name}.npz") as f:
+        meta = json.loads(str(f["meta"]))
+        for key in f.files:
+            if key == "meta":
+                continue
+            *path, leaf = key.split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = f[key]
+    if "kind" in meta:
+        return meta, flax_params_to_state_dict(tree, device)
+    return meta, gde_params_from_numpy(tree, device)

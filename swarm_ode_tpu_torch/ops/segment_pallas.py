@@ -16,8 +16,15 @@ planned once per batch). Every bucket is summed in its entries' order, as
 `index_add_` sums it on the CPU, so K4 and the plain versions agree there
 bit for bit.
 
+The planned sum is the custom op `swarm_ode_tpu_torch::segment_sum_planned`
+(registered when this module is imported), so that `torch.export` traces a
+model through it (serving.export_gde): its CPU kernel is the plain version,
+its CUDA kernel K4, and its fake gives the (N, D) float32 result without
+reading the plan, which the plain version reads on the host.
+
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches K4 or raises; nothing falls back.
+tensors it launches K4 or raises; nothing falls back. The op has a kernel
+for those two devices only.
 """
 from __future__ import annotations
 
@@ -117,24 +124,42 @@ def _launch(data, row, offsets, mean: bool):
     return out
 
 
+@torch.library.custom_op("swarm_ode_tpu_torch::segment_sum_planned", mutates_args=(),
+                         device_types="cpu")
+def _planned_op(data: torch.Tensor, row: torch.Tensor, offsets: torch.Tensor,
+                mean: bool) -> torch.Tensor:
+    return segment_sum_planned_plain(data, row, offsets, mean)
+
+
+@_planned_op.register_kernel("cuda")
+def _planned_op_cuda(data, row, offsets, mean):
+    # Any CUDA input dispatches here: a mix of devices raises.
+    _check_cuda([data, row, offsets])
+    return _launch(data, row, offsets, mean)
+
+
+@_planned_op.register_fake
+def _planned_op_fake(data, row, offsets, mean):
+    return data.new_empty(offsets.shape[0] - 1, data.shape[1], dtype=torch.float32)
+
+
 def segment_sum_planned(data, row, offsets, mean: bool = False):
-    """K4 for CUDA tensors, `segment_sum_planned_plain` for CPU tensors.
+    """K4 for CUDA tensors, `segment_sum_planned_plain` for CPU tensors,
+    through the op `swarm_ode_tpu_torch::segment_sum_planned`.
 
     data: (R, D) float32; row, offsets: a `segment_plan` whose rows lie in
     [0, R). Returns (N, D) float32, N = len(offsets) - 1: bucket d's sum of
     data[row[offsets[d]:offsets[d+1]]], divided by its length (at least 1)
     when `mean`. The offsets' values are not checked on the host (that would
     synchronise); the kernel keeps each range inside `row`."""
-    if data.device.type == "cpu":
-        return segment_sum_planned_plain(data, row, offsets, mean)
     if data.dim() != 2 or data.dtype != torch.float32:
         raise ValueError(f"data must be (R, D) float32, got {tuple(data.shape)} {data.dtype}")
     if row.dim() != 1 or row.dtype != torch.int32:
         raise ValueError(f"row must be (E,) int32, got {tuple(row.shape)} {row.dtype}")
     if offsets.dim() != 1 or offsets.shape[0] < 1 or offsets.dtype != torch.int32:
-        raise ValueError(f"offsets must be (N + 1,) int32, got {tuple(offsets.shape)} {offsets.dtype}")
-    _check_cuda([data, row, offsets])
-    return _launch(data, row, offsets, mean)
+        raise ValueError(
+            f"offsets must be (N + 1,) int32, got {tuple(offsets.shape)} {offsets.dtype}")
+    return _planned_op(data, row, offsets, mean)
 
 
 def segment_sum_call(data, ids, num_segments: int, valid: Optional[torch.Tensor] = None):
@@ -152,4 +177,4 @@ def segment_sum_call(data, ids, num_segments: int, valid: Optional[torch.Tensor]
     if valid is not None and (valid.shape != (E,) or valid.dtype != torch.bool):
         raise ValueError(f"valid must be ({E},) bool, got {tuple(valid.shape)} {valid.dtype}")
     _check_cuda([data, ids] + ([] if valid is None else [valid]))
-    return _launch(data, *segment_plan(ids, valid, max(num_segments, 0)), False)
+    return _planned_op(data, *segment_plan(ids, valid, max(num_segments, 0)), False)

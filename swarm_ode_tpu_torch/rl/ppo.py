@@ -120,7 +120,7 @@ class MappoRun:
         if cfg.mesh_devices > 0:
             raise ValueError("mesh_devices > 0 is not ported yet: data parallelism over "
                              "devices comes with utils and multi-device (ROADMAP.md queue 1, "
-                             "item 4)")
+                             "item 2)")
         dev = torch.device(cfg.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("run_mappo runs on the card (device='cuda') and none is "

@@ -934,3 +934,71 @@ def test_gru_marl_on_the_card(cuda, tmp_path):
     for _ in range(20):
         s = step_mod.step(pp, s, policy(observe(pp, s)), generator=g)[0]
     assert bfs_bitpack.LAUNCHES == 20
+
+
+@pytest.mark.cuda
+def test_k4_op_equals_the_direct_launch(cuda):
+    """K4 through the custom op swarm_ode_tpu_torch::segment_sum_planned
+    (the path an exported GDE takes) equals the direct launch bit for bit,
+    one counted launch a call; an op call it cannot launch raises."""
+    g = torch.Generator().manual_seed(11)
+    R, E, N, D = 700, 5000, 300, 64
+    x = torch.randn(R, D, generator=g).to(cuda)
+    src = torch.randint(0, R, (E,), generator=g).int().to(cuda)
+    dst = torch.randint(-5, N + 5, (E,), generator=g).int().to(cuda)
+    row, offsets = segment_pallas.segment_plan(dst, None, N, rows=src, num_rows=R)
+    for mean in (False, True):
+        before = segment_pallas.LAUNCHES
+        op = torch.ops.swarm_ode_tpu_torch.segment_sum_planned(x, row, offsets, mean)
+        direct = segment_pallas._launch(x, row, offsets, mean)
+        torch.cuda.synchronize()
+        assert segment_pallas.LAUNCHES == before + 2
+        assert torch.equal(op, direct)
+    with pytest.raises(ValueError, match="one device"):
+        torch.ops.swarm_ode_tpu_torch.segment_sum_planned(x, row, offsets.cpu(), True)
+
+
+@pytest.mark.cuda
+def test_gde_artifact_on_the_card_equals_the_eager_predictor(cuda):
+    """A GDE predictor exported on the card and loaded on the card gives the
+    eager predictor's bits, through K4 (3 launches an ODE step)."""
+    from swarm_ode_tpu_torch import serving
+    from swarm_ode_tpu_torch.models.gde import GraphODE
+
+    W, N, D, B, H = 4, 5, 9, 3, 3
+    g = torch.Generator().manual_seed(12)
+    model = GraphODE(D, 3, 2, 8).init_(g).to(cuda)
+    predict = serving.make_gde_fn(model, horizon=H)
+    obs = (torch.rand(B, W, N, D, generator=g) * 8.0).to(cuda)
+    count = torch.tensor([4, 2, 1], dtype=torch.int32, device=cuda)
+    loaded = serving.load_gde(serving.export_gde(predict, W, N, D, batch=B))
+    before = segment_pallas.LAUNCHES
+    got = loaded(obs, count)
+    torch.cuda.synchronize()
+    assert segment_pallas.LAUNCHES == before + 3 * H
+    assert got.shape == (B, H + 1, N, 2) and torch.equal(got, predict(obs, count))
+
+
+@pytest.mark.cuda
+def test_cpu_exported_policy_serves_on_the_card(cuda):
+    """A policy artifact exported on the CPU, loaded with device="cuda",
+    gives the CPU policy's actions (greedy, through the claim auction)."""
+    from swarm_ode_tpu_torch import serving
+    from swarm_ode_tpu_torch.config import EnvConfig
+    from swarm_ode_tpu_torch.env.layout import build_layout
+    from swarm_ode_tpu_torch.env.observations import observe
+    from swarm_ode_tpu_torch.env.state import make_params
+    from swarm_ode_tpu_torch.policies.heuristic import heuristic_rollout
+    from swarm_ode_tpu_torch.train.run_rl import RLRunConfig, make_network
+
+    cfg = EnvConfig.from_env_id("tarware-tiny-3agvs-2pickers-partialobs-v1")
+    lay = build_layout(cfg)
+    pp = make_params(cfg, lay, "cpu")
+    torch.manual_seed(0)
+    net = make_network(RLRunConfig(net="gnn", hidden_dim=16), pp.num_actions,
+                       1.0 / max(pp.grid_h, pp.grid_w))
+    policy = serving.make_policy_fn(pp, net, coordinated=True)
+    obs = observe(pp, heuristic_rollout(pp, lay, 4, 20, torch.Generator().manual_seed(3)).state)
+    served = serving.load_policy(serving.export_policy(policy, obs), device="cuda")
+    got = served(obs.to(cuda))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), policy(obs))

@@ -2,8 +2,10 @@
 
 Parameters cross over from a flax init (convert.gde_params_from_numpy), or
 from the flagship's exported blob (results_data/gde_medium_h4w.stablehlo,
-read by torch_port_helpers.gde_params_from_stablehlo), whose predictions
-the port's server must reproduce.
+whose weights the port carries as swarm_ode_tpu_torch/weights/
+gde_medium_h4w.npz, convert.committed_params; tests/test_torch_export.py
+holds that file to the blob), whose predictions the port's server must
+reproduce.
 """
 import pathlib
 
@@ -20,7 +22,7 @@ from swarm_ode_tpu_torch import convert
 from swarm_ode_tpu_torch.graphs import temporal as pt
 from swarm_ode_tpu_torch.models.gde import GraphODE
 from swarm_ode_tpu_torch.serving import make_gde_fn
-from torch_port_helpers import gde_params_from_stablehlo, served_windows
+from torch_port_helpers import served_windows
 
 BLOB = pathlib.Path(__file__).resolve().parent.parent / "results_data" / "gde_medium_h4w.stablehlo"
 
@@ -90,7 +92,7 @@ def test_flagship_blob_predictions_match():
     w = served_windows()
     assert w.obs.shape == (3, 5, 28, 435) and w.count.tolist() == [5, 3, 1]
     model = GraphODE(node_dim=435, num_agvs=19, num_pickers=9, hidden_dim=64, ode_solver="euler")
-    params = convert.gde_params_from_numpy(gde_params_from_stablehlo(BLOB), device="cpu")
+    _, params = convert.committed_params("gde_medium_h4w", device="cpu")
     predict = make_gde_fn(model, params, distance_threshold=5.0, horizon=4)
     blob = load_gde(BLOB.read_bytes())
     batch = predict(w.obs, w.count)

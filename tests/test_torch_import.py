@@ -217,6 +217,9 @@ def test_device_parameters_default_to_the_card():
         "swarm_ode_tpu_torch.convert.agent_state_from_numpy",
         "swarm_ode_tpu_torch.convert.coma_state_from_numpy",
         "swarm_ode_tpu_torch.convert.mappo_params_from_numpy",
+        "swarm_ode_tpu_torch.convert.committed_params",
+        "swarm_ode_tpu_torch.serving.load_policy",
+        "swarm_ode_tpu_torch.serving.load_gde",
     }
     assert {k for k, v in found.items() if v == "cuda"} >= entry_points
 

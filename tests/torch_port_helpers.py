@@ -1,13 +1,13 @@
 """Shared helpers of the tests that hold swarm_ode_tpu_torch against the JAX
 package: JAX structs to numpy dicts, the JAX step's and the stochastic
-dispatcher's random draws, field-by-field comparison, the flagship GDE's weights read out of its
-exported blob, and medium windows of observations to serve."""
+dispatcher's random draws, field-by-field comparison, medium windows of
+observations to serve, and the committed serving blobs' weights read out of
+the blobs (blob_weights; write_committed_weights writes the port's copies)."""
 from __future__ import annotations
 
 import dataclasses
 import functools
 import pathlib
-import re
 
 import jax
 import jax.numpy as jnp
@@ -154,67 +154,6 @@ def assert_same(expected: dict, got: dict, what: str):
                 f"{what}.{k}: {int((g != e).sum())} mismatches, first at "
                 f"{bad.tolist()}: port {g[tuple(bad[0])]} vs jax {e[tuple(bad[0])]}"
             )
-
-
-_CONST_RE = re.compile(
-    r"stablehlo\.constant dense<(?P<val>[^>]*)> : tensor<(?P<shape>[0-9x]*)xf32>"
-)
-
-
-def _mlir_constant(val: str, shape) -> np.ndarray:
-    if val.startswith('"0x'):
-        a = np.frombuffer(bytes.fromhex(val[3:-1]), dtype="<f4")
-    else:
-        nums = val.replace("[", " ").replace("]", " ").replace(",", " ").split()
-        a = np.array([float(v) for v in nums], np.float32)
-        if a.size == 1:
-            a = np.full(int(np.prod(shape)), a[0], np.float32)
-    return a.reshape(shape).copy()
-
-
-def gde_params_from_stablehlo(path, hidden_dim: int = 64) -> dict:
-    """The flagship GDE's weights, read out of its exported StableHLO blob
-    (serving.export_gde), as the numpy parameter tree of the JAX model.
-
-    The blob bakes its parameters in as f32 constants of the main function,
-    in the order the forward pass first uses them: per SAGE layer the lin_l
-    kernel, the lin_l bias, the lin_r kernel, then the decoder's kernel and
-    bias. Constants are matched to that list by shape, in order; others
-    (the time span) are skipped. tests/test_torch_gde.py proves the mapping
-    by matching the blob's own predictions."""
-    from jax import export as jax_export
-
-    exported = jax_export.deserialize(pathlib.Path(path).read_bytes())
-    text = exported.mlir_module()
-    main = text[text.index("@main("):]
-    end = main.find("func.func")  # the next function, if any
-    main = main if end < 0 else main[:end]
-    D, H = exported.in_avals[0].shape[-1], hidden_dim
-    names = []
-    for conv, (i, o) in (("conv1", (D, H)), ("conv2", (H, H)), ("conv3", (H, D))):
-        names += [((conv, "lin_l", "kernel"), (i, o)), ((conv, "lin_l", "bias"), (o,)),
-                  ((conv, "lin_r", "kernel"), (i, o))]
-    names += [(("decoder", "kernel"), (D, 2)), (("decoder", "bias"), (2,))]
-    tree = {"func": {"params": {}}, "decoder": {"params": {"position_decoder": {}}}}
-    k = 0
-    for m in _CONST_RE.finditer(main):
-        if k == len(names):
-            break
-        shape = tuple(int(v) for v in m.group("shape").split("x"))
-        key, want = names[k]
-        if shape != want:
-            continue
-        a = _mlir_constant(m.group("val"), shape)
-        if key[0] == "decoder":
-            tree["decoder"]["params"]["position_decoder"][key[1]] = a
-        else:
-            conv, lin, leaf = key
-            node = tree["func"]["params"].setdefault(conv, {"DenseSAGEConv_0": {}})
-            node["DenseSAGEConv_0"].setdefault(lin, {})[leaf] = a
-        k += 1
-    if k != len(names):
-        raise ValueError(f"found {k} of the {len(names)} weight constants in {path}")
-    return tree
 
 
 def served_windows():
@@ -386,3 +325,160 @@ class JaxMarlDraws:
     def split(self) -> "JaxMarlDraws":
         self.key, ke = jax.random.split(self.key)
         return JaxMarlDraws(self.jparams, ke, self.coordinated, self.algo)
+
+
+# The committed serving blobs whose weights the port carries as
+# swarm_ode_tpu_torch/weights/<name>.npz (convert.committed_params).
+REPO = pathlib.Path(__file__).resolve().parent.parent
+COMMITTED_BLOBS = ("gde_medium_h4w", "policy_qmix_coordtrain20k", "policy_qmix_large_coordtrain",
+                   "policy_dagger_clone_r4", "policy_dagger_clone_large_r4")
+
+
+def _program_ops(blob: bytes):
+    """The ops of an exported program other than its constants, in program
+    order: (op name, result types, operands), each operand the f32 array of
+    the constant that defines it, False for a constant of another type, or
+    None for any other value. Arrays are read from the module's attributes,
+    so they are exact."""
+    from jax import export as jax_export
+    from jax._src.interpreters import mlir
+    from jax._src.lib.mlir import ir
+
+    ops = []
+    with mlir.make_ir_context():
+        module = ir.Module.parse(jax_export.deserialize(blob).mlir_module())
+
+        def constant(value):
+            owner = value.owner
+            if isinstance(owner, ir.Block) or owner.operation.name != "stablehlo.constant":
+                return None
+            attr = owner.attributes["value"]
+            ttype = ir.RankedTensorType(attr.type)
+            if str(ttype.element_type) != "f32":
+                return False
+            if attr.is_splat:
+                return np.full(tuple(ttype.shape), ir.FloatAttr(attr.get_splat_value()).value,
+                               np.float32)
+            return np.array(ir.DenseFPElementsAttr(attr)).reshape(tuple(ttype.shape))
+
+        def walk(op):
+            for region in op.regions:
+                for block in region.blocks:
+                    for o in block.operations:
+                        if o.operation.name not in ("func.func", "stablehlo.constant"):
+                            ops.append((o.operation.name, tuple(str(r.type) for r in o.results),
+                                        [constant(v) for v in o.operands]))
+                        walk(o.operation)
+
+        walk(module.operation)
+    return ops
+
+
+def _blob_program(name: str, meta: dict):
+    """(the parameter tree's shapes, export) of a committed blob's model,
+    built as its export script (experiments/export_gde.py,
+    export_policy.py) builds it; export(leaves) exports that program again
+    with the JAX package's serving functions, the parameters `leaves`
+    ('/'-joined flax paths -> arrays) baked in."""
+    from swarm_ode_tpu import serving as jserving
+
+    if name.startswith("gde"):
+        from swarm_ode_tpu.graphs.temporal import TemporalWindow, build_temporal_graph
+        from swarm_ode_tpu.models.gde import GraphODE as JGraphODE
+
+        jcfg = JEnvConfig.from_env_id(meta["env"])
+        jp = jmake_params(jcfg, jbuild_layout(jcfg))
+        W, N, D = meta["window"], meta["num_agents"], meta["obs_dim"]
+        model = JGraphODE(node_dim=D, num_agvs=int(jp.num_agvs), num_pickers=int(jp.num_pickers),
+                          hidden_dim=meta["hidden_dim"])
+        w0 = TemporalWindow(obs=jnp.zeros((W, N, D), jnp.float32), count=jnp.int32(W))
+        shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), build_temporal_graph(
+            w0, model.num_agvs, 5.0), jnp.array([0.0, 1.0])))
+
+        def export(tree):
+            fn = jserving.make_gde_fn(model, tree, horizon=meta["horizon"])
+            return jserving.export_gde(fn, window=W, num_agents=N, obs_dim=D)
+    else:
+        from swarm_ode_tpu.env.observations import observe as jobserve
+        from swarm_ode_tpu.graphs.hetero import hetero_graph_from_obs
+        from swarm_ode_tpu.train.run_rl import RLRunConfig, _make_network
+
+        jcfg = JEnvConfig.from_env_id(meta["env_id"])
+        jp = jmake_params(jcfg, jbuild_layout(jcfg))
+        net = _make_network(RLRunConfig(net=meta["net"], hidden_dim=meta["hidden_dim"]),
+                            jp.num_actions, jp.num_agvs, jp.num_pickers,
+                            coord_scale=1.0 / float(max(jp.grid_h, jp.grid_w)))
+        key = jax.random.PRNGKey(0)
+        obs = jax.jit(lambda k: jobserve(jp, jstep.reset(jp, k)))(key)
+        shapes = jax.eval_shape(lambda: net.init(key, hetero_graph_from_obs(jp, obs)))
+
+        def export(tree):
+            policy = jserving.make_policy_fn(jp, net, tree, coordinated=meta["coordinated"],
+                                             temperature=meta["temperature"])
+            return jserving.export_policy(policy, obs, stochastic=meta["temperature"] > 0)
+
+    paths, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    names = ["/".join(str(getattr(k, "key", k)) for k in path) for path, _ in paths]
+    return ({n: s.shape for n, (_, s) in zip(names, paths)},
+            lambda leaves: export(jax.tree_util.tree_unflatten(
+                treedef, [jnp.asarray(leaves[n]) for n in names])))
+
+
+def blob_weights(name: str):
+    """(leaves, meta) of the committed blob results_data/<name>.stablehlo:
+    its model's flax parameters by '/'-joined path, read out of the blob's
+    constants, and its .stablehlo.json fields with the blob's sha256 and
+    `zeroed`, the leaves the blob does not hold (zeros here).
+
+    The program is exported again (`_blob_program`) with parameters that
+    all differ, which tells which constant is which leaf; walked op by op
+    beside the committed program (the same ops, or this raises), each such
+    constant's operand slot there holds the trained leaf. The blobs were
+    written by a JAX that folded equal constants into one (the biases of
+    relations into one node type train alike), so one committed constant
+    may serve several leaves. A leaf the program never reads (dropped by
+    jit, as the last conv block's location-bound relations are) is absent
+    from both programs."""
+    import hashlib
+    import json
+
+    path = REPO / "results_data" / f"{name}.stablehlo"
+    blob = path.read_bytes()
+    meta = json.loads(path.with_name(path.name + ".json").read_text())
+    shapes, export = _blob_program(name, meta)
+    rng = np.random.RandomState(0)
+    marked = {n: rng.uniform(1.0, 2.0, s).astype(np.float32) for n, s in shapes.items()}
+    by_value = {a.tobytes(): n for n, a in marked.items()}
+    fresh, committed = _program_ops(export(marked)), _program_ops(blob)
+    if len(fresh) != len(committed):
+        raise ValueError(f"{name}: {len(committed)} ops, the JAX package's export {len(fresh)}")
+    leaves = {}
+    for (f_op, f_types, f_args), (c_op, c_types, c_args) in zip(fresh, committed):
+        if (f_op, f_types, len(f_args)) != (c_op, c_types, len(c_args)):
+            raise ValueError(f"{name}: op {c_op} {c_types} where the JAX package has "
+                             f"{f_op} {f_types}")
+        for f, c in zip(f_args, c_args):
+            leaf = by_value.get(f.tobytes()) if isinstance(f, np.ndarray) else None
+            if leaf is None:
+                continue
+            if not isinstance(c, np.ndarray) or c.shape != marked[leaf].shape:
+                raise ValueError(f"{name}: {leaf} reads no f32 constant of its shape")
+            if leaf in leaves and not np.array_equal(leaves[leaf], c):
+                raise ValueError(f"{name}: {leaf} reads two different constants")
+            leaves[leaf] = c
+    zeroed = sorted(set(marked) - set(leaves))
+    leaves.update({n: np.zeros_like(marked[n]) for n in zeroed})
+    meta = dict(meta, sha256=hashlib.sha256(blob).hexdigest(), zeroed=zeroed)
+    return {n: leaves[n] for n in marked}, meta
+
+
+def write_committed_weights(out_dir=REPO / "swarm_ode_tpu_torch" / "weights") -> None:
+    """Write swarm_ode_tpu_torch/weights/<name>.npz for every committed blob:
+    the leaves of `blob_weights` under their paths, and `meta` (JSON)."""
+    import json
+
+    out_dir = pathlib.Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name in COMMITTED_BLOBS:
+        leaves, meta = blob_weights(name)
+        np.savez(out_dir / f"{name}.npz", meta=np.array(json.dumps(meta, sort_keys=True)), **leaves)
