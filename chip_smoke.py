@@ -175,7 +175,21 @@ Phases, one line of output each (any failure exits non-zero):
      within 1e-4 of the largest against the eager predictor on the card and
      the port on the CPU (8 windows), a loaded call with host
      synchronisation forbidden; ms per batch of the predictor, loaded beside
-     eager; each export's seconds (trace and save) and the phase's.
+     eager; each export's seconds (trace and save) and the phase's;
+ 17. profiling and data parallelism: utils/profiling's StageTimer over 20
+     steps of the main path (medium, B = 2048, dispatcher and step as two
+     stages, block_on the env state); a stage around a device sleep reads
+     at least the sleep (timed by CUDA events) with block_on and less
+     without it; device_throughput
+     of the 20-step loop beside phase 6's reading (no gate). One NCCL rank
+     on the card (a process group of world size 1 through a file store):
+     make_mesh takes cuda:0, an all_reduce and a broadcast on the card;
+     train_gde for one epoch on phase 9's episodes (its recipe, uint8
+     storage) and run_mappo with mesh_devices=1 at JAX's mesh parity config
+     (tiny, 4 envs, 2 strides of 30 steps) each equal the run without a
+     process group bit for bit (parameters and history; a second run
+     without a group, the control, equal too), counts zeroed before the
+     mesh MAPPO run and read after (K1 once a collected step).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `bound_ms` is the least time the
@@ -302,6 +316,13 @@ GRU_ENVS, GRU_HIDDEN, GRU_BATCH, GRU_BUFFER, GRU_CHECK_STEPS = 8, 256, 32, 20_00
 POLICY_BLOBS = ("policy_qmix_coordtrain20k", "policy_qmix_large_coordtrain",
                 "policy_dagger_clone_r4", "policy_dagger_clone_large_r4")
 SERVED_POLICY, EXPORT_OBS, SERVE_ENVS = "policy_qmix_coordtrain20k", 16, 64
+# Profiling and data parallelism: StageTimer over MESH_STEPS steps of the
+# main path; a device sleep of about MESH_SLEEP_S for the block_on gate;
+# MAPPO at tests/test_mappo.py's mesh parity config.
+MESH_STEPS, MESH_SLEEP_S = 20, 0.05
+MESH_MAPPO = dict(env_id="tarware-tiny-3agvs-2pickers-partialobs-v1", net="gnn", hidden_dim=8,
+                  num_envs=4, num_strides=2, steps_override=30, minibatch=16, ppo_epochs=1,
+                  coordinated=True, seed=3)
 # Card against CPU for one MAPPO minibatch: a collection of this many steps
 # (8 envs: 160 samples, of which the minibatch takes 128).
 MAPPO_CHECK_STEPS = 20
@@ -986,7 +1007,8 @@ def phase_main_path(layout_cache):
     say("main-path", f"bitpack32 runs (steps/s, deliveries per env): "
         + ", ".join(f"({r:.1f}, {d:.3f})" for r, d in runs)
         + f"; int32, one run after the first: ({rate32:.1f}, {deliv32:.3f})")
-    say("main-path", f"batched_env_steps_per_sec {max(r for r, _ in runs):.1f}")
+    best = max(r for r, _ in runs)
+    say("main-path", f"batched_env_steps_per_sec {best:.1f}")
 
     # From one start state and one set of draws both kernels give identical
     # steps (these launches are a comparison and are not counted above).
@@ -1000,7 +1022,7 @@ def phase_main_path(layout_cache):
         fail("main-path", "int32 and bitpack32 rollouts differ")
     say("main-path", f"bfs_kernel=int32 vs bitpack32, B={BATCH}, 5 steps from one state "
         "with the same draws: states identical")
-    return by_setting
+    return by_setting, best
 
 
 def random_fields(H, W, K, seed, device, impassable=False):
@@ -3183,6 +3205,152 @@ def phase_export(layout_cache, smi):
         fail("export", "loaded GDE predictions differ from the eager predictor or the CPU")
     return k1, k4
 
+def phase_mesh(layout_cache, smi, main_path_rate: float):
+    """utils/profiling on the main path and one NCCL rank on the card:
+    StageTimer's stages, its block_on gate, device_throughput; train_gde
+    and run_mappo inside a one-rank process group against the runs without
+    one, bit for bit. Returns {path: K1 launches} of the mesh MAPPO
+    collection."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from swarm_ode_tpu_torch.data.dataset import TrajectoryDataset
+    from swarm_ode_tpu_torch.env import step as step_mod
+    from swarm_ode_tpu_torch.ops import bfs_bitpack
+    from swarm_ode_tpu_torch.parallel import mesh as meshlib
+    from swarm_ode_tpu_torch.policies.heuristic import init_state, make_policy
+    from swarm_ode_tpu_torch.rl import ppo
+    from swarm_ode_tpu_torch.train import train_gde as tg
+    from swarm_ode_tpu_torch.utils.profiling import StageTimer, device_throughput
+
+    t_phase = time.perf_counter()
+    _, lay, pp = layout_cache["medium"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    policy = make_policy(pp, lay)
+
+    def loop(es, h):
+        for _ in range(MESH_STEPS):
+            actions, h = policy(pp, es, h)
+            es, _, _, _ = step_mod.step(pp, es, actions, generator=gen)
+        return es
+
+    es, h = step_mod.reset(pp, BATCH, gen), init_state(pp, BATCH)
+    loop(es, h)
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    for _ in range(MESH_STEPS):
+        with timer.stage("dispatcher", block_on=es):
+            actions, h = policy(pp, es, h)
+        with timer.stage("step", block_on=es):
+            es, _, _, _ = step_mod.step(pp, es, actions, generator=gen)
+    stages = timer.summary({"dispatcher": BATCH, "step": BATCH})
+    say("mesh", f"StageTimer, medium B={BATCH}, {MESH_STEPS} steps, block_on the env state: "
+        + "; ".join(f"{k}: mean {1e3 * v['mean_s']:.3f} ms, {v['calls']} calls, "
+                    f"throughput {v['throughput']:.1f} env steps/s" for k, v in stages.items())
+        + f"; on {smi}")
+
+    # The gate: a stage around a device sleep, its length read by CUDA events
+    # (the SM clock may run above SM_CYCLES_PER_S: one H100 slept 99,000,000
+    # cycles in 0.0498 s). With block_on the stage spans the whole sleep,
+    # without it only the launch.
+    cycles = int(MESH_SLEEP_S * SM_CYCLES_PER_S)
+    x = torch.zeros(1, device="cuda")
+    gate, slept = StageTimer(), {}
+    for name, block_on in (("block_on", x), ("no block_on", None)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with gate.stage(name, block_on=block_on):
+            start.record()
+            torch.cuda._sleep(cycles)
+            end.record()
+            x += 1
+        torch.cuda.synchronize()
+        slept[name] = start.elapsed_time(end) / 1e3
+    read = {k: v["total_s"] for k, v in gate.summary().items()}
+    say("mesh", f"a stage around a device sleep of {cycles} cycles: "
+        f"{read['block_on']:.4f} s with block_on (the sleep {slept['block_on']:.4f} s by "
+        f"events), {read['no block_on']:.4f} s without (the sleep "
+        f"{slept['no block_on']:.4f} s)")
+    if not (read["block_on"] >= slept["block_on"]
+            and read["no block_on"] < slept["no block_on"]):
+        fail("mesh", "StageTimer's block_on did not wait for the card")
+
+    rate = device_throughput(loop, (step_mod.reset(pp, BATCH, gen), init_state(pp, BATCH)),
+                             units=BATCH * MESH_STEPS, repeats=3)
+    say("mesh", f"device_throughput of {MESH_STEPS} steps of dispatcher + step at B={BATCH}: "
+        f"{rate:.1f} env steps/s (best of 3); phase 6's batched_env_steps_per_sec "
+        f"{main_path_rate:.1f} over {STEPS} steps; on {smi}")
+
+    obs = record_episodes(pp, lay, TRAIN_ENVS, TRAIN_STEPS, seed=11)
+    ds = TrajectoryDataset(episodes=list(obs), num_agvs=pp.num_agvs,
+                           num_pickers=pp.num_pickers, seq_len=WINDOW)
+    gcfg = tg.GDETrainConfig(num_epochs=1, horizon=HORIZON, horizon_weights=TRAIN_WEIGHTS,
+                             device_dtype="uint8")
+    mcfg = ppo.MAPPOConfig(**MESH_MAPPO)
+
+    def runs(mesh_devices):
+        g = tg.train_gde(ds, gcfg, verbose=False)
+        m = ppo.run_mappo(dataclasses.replace(mcfg, mesh_devices=mesh_devices), verbose=False)
+        torch.cuda.synchronize()
+        return g, m
+
+    def same(a, b):
+        """(train_gde equal, run_mappo equal), bit for bit, the timings
+        of the MAPPO history left out."""
+        drop = ("seconds", "collect_seconds", "update_seconds")
+        gde = (a[0]["history"] == b[0]["history"]
+               and all(torch.equal(v, b[0][part][k]) for part in ("params", "final_params")
+                       for k, v in a[0][part].items()))
+        mappo = ([{k: v for k, v in h.items() if k not in drop} for h in a[1]["history"]]
+                 == [{k: v for k, v in h.items() if k not in drop} for h in b[1]["history"]]
+                 and all(torch.equal(v, b[1][part][k]) for part in ("actor_params", "critic_params")
+                         for k, v in a[1][part].items()))
+        return gde, mappo
+
+    alone, control = runs(0), runs(0)
+    with tempfile.TemporaryDirectory() as store:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = meshlib.make_mesh(("dp",))
+            t = torch.arange(4.0, device="cuda")
+            dist.all_reduce(t)
+            dist.broadcast(t, src=0)
+            torch.cuda.synchronize()
+            if mesh.device != torch.device("cuda", 0) or mesh.size != 1 or not torch.equal(
+                    t.cpu(), torch.arange(4.0)):
+                fail("mesh", f"one NCCL rank: mesh on {mesh.device} of {mesh.size} rank(s), "
+                     f"all_reduce + broadcast gave {t.tolist()}")
+            g = tg.train_gde(ds, gcfg, verbose=False)
+            torch.cuda.synchronize()
+            bfs_bitpack.LAUNCHES = 0
+            m = ppo.run_mappo(dataclasses.replace(mcfg, mesh_devices=1), verbose=False)
+            torch.cuda.synchronize()
+            k1 = bfs_bitpack.LAUNCHES
+        finally:
+            dist.destroy_process_group()
+        dt = time.perf_counter() - t0
+    ranked, repeat = same((g, m), alone), same(control, alone)
+    hist = g["history"]
+    say("mesh", f"one NCCL rank (file store, world size 1; {dt:.1f} s): mesh on {mesh.device}, "
+        f"all_reduce + broadcast on the card; train_gde 1 epoch (train loss "
+        f"{hist['train_loss'][0]:.6f}, val loss {hist['val_loss'][0]:.6f}) and run_mappo "
+        f"mesh_devices=1 (pick rates {[h['pick_rate'] for h in m['history']]}) equal the runs "
+        f"without a group bit for bit: {ranked}; control (a second run without a group): "
+        f"{repeat}; K1 launches in the mesh MAPPO collection {k1}")
+    want_k1 = mcfg.num_strides * mcfg.steps_override
+    if not (all(ranked) and all(repeat)):
+        fail("mesh", f"one NCCL rank against no group (train_gde, run_mappo) {ranked}; "
+             f"control {repeat}")
+    if k1 != want_k1:
+        fail("mesh", f"K1 launched {k1} times in the mesh MAPPO collection, expected {want_k1}")
+    say("mesh", f"phase {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return {"MAPPO collection, one NCCL rank": k1}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3197,7 +3365,7 @@ def main() -> None:
     query_times = phase_kernels(layouts, regs)
     k3_times, k3_err = phase_fields(layouts)
     k1_stochastic = phase_card_vs_cpu(layouts)
-    by_setting = phase_main_path(layouts)
+    by_setting, main_path_rate = phase_main_path(layouts)
     k3_launches = phase_full_field(layouts)
     k4_launches, k4 = phase_gde(layouts, smi)
     k4_training, k4_trained = phase_train(layouts, smi)
@@ -3208,6 +3376,7 @@ def main() -> None:
     k1_learn, _ = phase_learn_from_expert(layouts, smi)
     k1_recurrent, _ = phase_recurrent(layouts, smi)
     k1_export, k4_export = phase_export(layouts, smi)
+    k1_mesh = phase_mesh(layouts, smi, main_path_rate)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
     def entry(k, name, replaces, setting):
@@ -3228,7 +3397,7 @@ def main() -> None:
     k1["launches_by_path"] = {
         "main path rollout": by_setting["bitpack32"]["K1"], "datagen": k1_datagen,
         "stochastic expert (card vs CPU)": k1_stochastic, **k1_env_api, **k1_marl,
-        **k1_learn, **k1_recurrent, "exported policy served": k1_export}
+        **k1_learn, **k1_recurrent, "exported policy served": k1_export, **k1_mesh}
 
     planned, narrow = k4[435], k4[HIDDEN]
     record = {"kernels": [

@@ -27,8 +27,18 @@ Ported so far:
     custom op `swarm_ode_tpu_torch::segment_sum_planned`), `load_policy` /
     `load_gde`, episodes served from an artifact file (`python -m
     swarm_ode_tpu_torch.serving`), and the committed serving blobs'
-    weights (`weights/*.npz`, `convert.committed_params`).
-The kernels' sources are under csrc/.
+    weights (`weights/*.npz`, `convert.committed_params`);
+  * learning from the dispatcher and on-policy MARL (`train/train_bc.py`,
+    COMA, MAPPO in `rl/ppo.py`) and the recurrent models (`models/gru.py`,
+    `train/train_baselines.py`, graph-GRU IQL);
+  * profiling (`utils/profiling.py`: `trace`, `StageTimer`,
+    `device_throughput`), `full_registration` below, and data parallelism
+    over torch.distributed (`parallel/mesh.py`): `train_gde`,
+    `train_baseline` and MAPPO's `mesh_devices` over one rank per device,
+    and `entry.dryrun_multichip`, a dp x mp train step on gloo ranks.
+The kernels' sources are under csrc/. What the JAX package has and the
+port does not: `analysis.py` and the A* helper (`native/astar.cpp`,
+`utils/astar.py`), which need no port.
 
 This package imports torch and numpy and never jax. Importing it builds
 nothing; the CUDA kernels are compiled at first use on a GPU.
@@ -36,8 +46,9 @@ nothing; the CUDA kernels are compiled at first use on a GPU.
 A function that takes a `device` (`env.state.make_params`, `make`,
 `graphs.temporal.init_window`, the `convert.*_from_numpy` loaders,
 `convert.committed_params`, `serving.load_policy` / `load_gde`,
-`train.train_gde.train_gde`, `data.collect.collect_data`, `entry.entry`;
-and `train.run_rl.run_marl` through `RLRunConfig.device`) puts its tensors
+`train.train_gde.train_gde`, `data.collect.collect_data`, `entry.entry`,
+`parallel.mesh.make_mesh`; and `train.run_rl.run_marl` through
+`RLRunConfig.device`) puts its tensors
 on the card unless the caller passes `device="cpu"`; without a card such a
 call raises. Everything else runs where its inputs
 lie.
@@ -97,6 +108,13 @@ def register_gym_envs():
             },
         )
     _REGISTERED = True
+
+
+def full_registration():
+    """Alias of register_gym_envs (reference tarware/__init__.py:47-67: its
+    version passes a `sensor_range` kwarg Warehouse never accepted, so the
+    working equivalent is the standard registration)."""
+    register_gym_envs()
 
 
 def make(env_id_str: str, device="cuda", **overrides):

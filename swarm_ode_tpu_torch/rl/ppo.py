@@ -22,6 +22,15 @@ the critic each clip their gradient to max_grad_norm (optax's rule) before
 their own Adam. Draws (resets, step draws, the sampling Gumbels, the
 permutations) come from rl/draws.RolloutDraws or any object with its
 methods (the tests give JAX's own).
+
+With `mesh_devices` = n > 0 the envs are split over the n ranks of a
+process group, one per device (parallel/mesh.py), as JAX splits them over
+n devices. Each rank draws for all B envs, as one device would, and keeps
+its B/n: its envs' trajectories are the one-device run's. The collection
+(rollout, policy, GAE) needs no communication; run_mappo then gathers the
+whole (T, B) stride on every rank (`gather`), and every rank takes the same
+update on it, so the parameters stay equal with no gradient collective.
+Rank 0 writes the checkpoints and the log.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from swarm_ode_tpu_torch.env.observations import compute_valid_action_masks, obs
 from swarm_ode_tpu_torch.env.state import make_params
 from swarm_ode_tpu_torch.graphs.hetero import masks_from_feats
 from swarm_ode_tpu_torch.models.init import dense_init_
+from swarm_ode_tpu_torch.parallel import mesh as meshlib
 from swarm_ode_tpu_torch.rl import coordination
 from swarm_ode_tpu_torch.rl.dqn import adam_step, module_params, obs_q_values, value_and_grad
 from swarm_ode_tpu_torch.rl.draws import RolloutDraws
@@ -79,7 +89,9 @@ class MAPPOConfig:
     # Warm start: a checkpoint dir holding {'q_params': ...} from
     # train/train_bc.py (net and hidden_dim must match).
     init_from: Optional[str] = None
-    # Data parallelism over devices: not ported (raises when > 0).
+    # Data parallelism: split the env dimension over this many ranks, one per
+    # device (0 = one device, no process group). num_envs must divide, and
+    # the process group must have this many ranks.
     mesh_devices: int = 0
     seed: int = 0
     steps_override: int = 0  # 0 = the env's max_steps; short episodes for smokes
@@ -112,16 +124,21 @@ class ValueNet(nn.Module):
 
 class MappoRun:
     """One MAPPO run's pieces on cfg.device: the env params, the actor
-    (network and parameters), the critic, both Adam states and the draws.
-    `collect`, `update` and `eval_probe` never wait on the card; run_mappo
-    drives them."""
+    (network and parameters), the critic, both Adam states, the draws and,
+    with cfg.mesh_devices, the mesh (else None). `collect`, `update` and
+    `eval_probe` never wait on the card; run_mappo drives them."""
 
     def __init__(self, cfg: MAPPOConfig, draws=None, verbose: bool = False):
-        if cfg.mesh_devices > 0:
-            raise ValueError("mesh_devices > 0 is not ported yet: data parallelism over "
-                             "devices comes with utils and multi-device (ROADMAP.md queue 1, "
-                             "item 2)")
-        dev = torch.device(cfg.device)
+        self.mesh = None
+        if cfg.mesh_devices:
+            if cfg.num_envs % cfg.mesh_devices:
+                raise ValueError(f"num_envs={cfg.num_envs} must divide over "
+                                 f"mesh_devices={cfg.mesh_devices}")
+            self.mesh = meshlib.make_mesh(("dp",), device=cfg.device)
+            if self.mesh.size != cfg.mesh_devices:
+                raise ValueError(f"mesh_devices={cfg.mesh_devices} needs a process group of as "
+                                 f"many ranks; it has {self.mesh.size}")
+        dev = self.mesh.device if self.mesh else torch.device(cfg.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("run_mappo runs on the card (device='cuda') and none is "
                                "available; pass device='cpu' to run on the CPU")
@@ -185,15 +202,26 @@ class MappoRun:
         lp = coordination.log_softmax(torch.where(masks > 0, logits, -1e9))
         return lp.gather(-1, actions.long()[..., None])[..., 0], coordination.entropy_of(lp)
 
+    def share(self, tree):
+        """This rank's envs of a tree drawn for all B (the tree itself on
+        one device)."""
+        return meshlib.shard_batch(self.mesh, tree) if self.mesh else tree
+
+    def gather(self, traj: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The whole (T, B, ...) stride from every rank's (T, B/n, ...)
+        share, on every rank (the share itself on one device)."""
+        return meshlib.all_gather(self.mesh, traj, dim=1) if self.mesh else traj
+
     @torch.no_grad()
     def collect(self, draws=None) -> Dict[str, torch.Tensor]:
-        """One stride: B fresh episodes of T steps under the current actor.
+        """One stride: B fresh episodes of T steps under the current actor
+        (this rank's B/n with a mesh; the draws are made for all B).
         Returns the (T, B, ...) trajectory on the device: obs, gs, actions,
         logp, active, reward (the team mean), deliv, overflow (the replan
         query's), adv and ret (GAE)."""
         cfg, p, draws = self.cfg, self.params, draws or self.draws
         B, T = cfg.num_envs, self.T
-        es = draws.reset(B)
+        es = self.share(draws.reset(B))
         obs = observe(p, es)
         keys = ("obs", "gs", "actions", "logp", "active", "reward", "deliv", "overflow")
         traj = {k: [] for k in keys}
@@ -201,14 +229,14 @@ class MappoRun:
             logits = self.logits(self.actor_params, obs)
             masks = compute_valid_action_masks(p, es)
             active = ~es.agent_busy
-            gumbel = draws.gumbel(B)
+            gumbel = self.share(draws.gumbel(B))
             if cfg.coordinated:
                 a = coordination.coordinated_sample(logits, masks, p.num_agvs, 1 + p.num_goals,
                                                     gumbel, active=active)
             else:
                 a = (gumbel + torch.where(masks > 0, logits, -1e9)).argmax(-1).to(torch.int32)
             lp, _ = self.logp_taken(logits, masks, a, active)
-            es2, rew, _, info = step_mod.step(p, es, a, noise=draws.step(B))
+            es2, rew, _, info = step_mod.step(p, es, a, noise=self.share(draws.step(B)))
             gs = global_state(feats_of(p, obs), self.gs_scale)
             for k, v in zip(keys, (obs, gs, a, lp, active, rew.mean(-1),
                                    info["shelf_deliveries"], info["replan_overflow"])):
@@ -302,18 +330,21 @@ def run_mappo(cfg: MAPPOConfig, verbose: bool = True, logger=None, draws=None,
     seeded with cfg.seed); run: a MappoRun of cfg to continue (default a
     fresh one). Returns {'actor_params', 'critic_params', 'history'}; each
     stride's stats add to JAX's the seconds of its collection and of its
-    update and the replan query's overflow."""
+    update and the replan query's overflow. With a mesh every rank returns
+    the same; rank 0 logs, prints and writes the checkpoints."""
     run = run if run is not None else MappoRun(cfg, draws, verbose)
     B, T = cfg.num_envs, run.T
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
     guard = cfg.forbid_host_sync and run.device.type == "cuda"
     if guard:
         run.warm_up()
+    lead = run.mesh is None or run.mesh.rank == 0
     history = []
     for stride in range(cfg.num_strides):
         t0 = time.time()
         with sync_guard(guard):
             traj = run.collect()
+        traj = run.gather(traj)
         deliv, overflow = (float(v) for v in torch.stack(
             [traj["deliv"].sum().float(), traj["overflow"].sum().float()]).cpu())
         deliv /= B
@@ -338,9 +369,9 @@ def run_mappo(cfg: MAPPOConfig, verbose: bool = True, logger=None, draws=None,
             stats["eval_pick_rate"] = pick_rate(ed, T)
             stats["eval_return"] = er
         history.append(stats)
-        if logger:
+        if logger and lead:
             logger.log(stats, step=stride)
-        if verbose:
+        if verbose and lead:
             msg = (f"[mappo] stride {stride} (ep {stats['episode']}): "
                    f"pick_rate={stats['pick_rate']:.2f} return={stats['return']:.2f} "
                    f"pg={stats['pg_loss']:.4f} v={stats['v_loss']:.4f} "
@@ -348,7 +379,7 @@ def run_mappo(cfg: MAPPOConfig, verbose: bool = True, logger=None, draws=None,
             if "eval_pick_rate" in stats:
                 msg += f" | eval={stats['eval_pick_rate']:.2f}"
             print(msg, flush=True)
-        if ckpt and (stride + 1) % cfg.checkpoint_every == 0:
+        if ckpt and lead and (stride + 1) % cfg.checkpoint_every == 0:
             ckpt.save(stride, {"q_params": run.actor_params, "critic": run.critic_params},
                       force=True)
     return {"actor_params": run.actor_params, "critic_params": run.critic_params,

@@ -15,9 +15,11 @@ the device (train_gde.window_batch with the windows' positions), and the
 losses are read back once an epoch; otherwise the host gathers each batch.
 The split and the shuffles are JAX's (`train_val_split`,
 `RandomState(seed).permutation`), and the optimizer optax's
-chain(clip_by_global_norm, adamw) over lists (utils/optim). One device
-only: the JAX trainer's one-device mesh pads nothing, and data
-parallelism is ROADMAP queue 1's multi-device item.
+chain(clip_by_global_norm, adamw) over lists (utils/optim). Data parallel
+over the ranks of a process group as train_gde is (its module docstring):
+resident batches that divide over the ranks are split and their losses and
+gradients summed, others computed whole on every rank, host batches padded
+with weight-0 windows and split.
 
     python -m swarm_ode_tpu_torch.train.train_baselines --files data/*.h5
 """
@@ -37,11 +39,15 @@ from swarm_ode_tpu_torch.models.gru import (
     PositionOnlyGRU,
     PositionOnlyLSTM,
 )
+from swarm_ode_tpu_torch.parallel import mesh as meshlib
 from swarm_ode_tpu_torch.train.train_gde import (
     _total,
+    eval_loss,
+    host_share,
+    pair_share,
     stack_episodes_streamed,
     train_step,
-    window_batch,
+    weighted_mean,
 )
 from swarm_ode_tpu_torch.utils.optim import adamw_init
 
@@ -77,13 +83,11 @@ class BaselineTrainConfig:
 def baseline_loss(model: torch.nn.Module, position_only: bool):
     """loss_fn(batch): the MSE of model(batch['pos'] or batch['obs']) against
     batch['next_pos'] (B, N, 2) per window, averaged with batch['weight']
-    (B,) and normalised by its sum (at least 1)."""
+    (B,) and normalised by its sum (at least 1; train_gde.weighted_mean)."""
 
     def loss_fn(batch):
         pred = model(batch["pos"] if position_only else batch["obs"])
-        per = ((pred - batch["next_pos"]) ** 2).mean(dim=(1, 2))
-        w = batch["weight"]
-        return (per * w).sum() / w.sum().clamp(min=1.0)
+        return weighted_mean(((pred - batch["next_pos"]) ** 2).mean(dim=(1, 2)), batch)
 
     return loss_fn
 
@@ -95,12 +99,15 @@ def train_baseline(dataset: TrajectoryDataset,
     the config asks for the CPU; raises without one). `init_params`: a state
     dict to start from (convert.flax_params_to_state_dict of a JAX init,
     say); otherwise the parameters are drawn as flax draws them (`init_`)
-    from torch.Generator(device).manual_seed(seed).
+    from torch.Generator(device).manual_seed(seed). Data parallel over the
+    ranks of the default process group when one is up
+    (parallel/mesh.make_mesh; "cuda" is then each rank's own card).
 
     Returns {'model', 'params' (a copy of the best epoch's state dict),
     'final_params', 'opt_state' (the final AdamWState), 'history',
     'best_val_loss'}."""
-    device = torch.device(config.device)
+    mesh = meshlib.make_mesh(("dp",), device=config.device)
+    device = mesh.device
     position_only = config.model.startswith("pos_")
     model = MODEL_FACTORIES[config.model](dataset, config.hidden_dim).to(device)
     if init_params is not None:
@@ -109,6 +116,8 @@ def train_baseline(dataset: TrajectoryDataset,
         model.init_(torch.Generator(device).manual_seed(config.seed))
     params = list(model.parameters())
     opt_state = adamw_init(params)
+    with torch.no_grad():
+        meshlib.replicate(mesh, (params, opt_state))
     loss_fn = baseline_loss(model, position_only)
 
     def snapshot():
@@ -129,17 +138,20 @@ def train_baseline(dataset: TrajectoryDataset,
         pairs = np.ascontiguousarray(index_np[perm[: n_full * B]])
         return torch.from_numpy(pairs).to(device).view(n_full, B, 2)
 
+    def pair_batch(pairs):
+        return pair_share(mesh, data, pairs, seq_len, with_pos=True)
+
     def batch_at(idx):
-        """The loss's batch for windows `idx` (a host batch of the dataset's
-        windows, or resident windows cut on the device)."""
+        """The loss's batch (this rank's share on several) for windows `idx`:
+        a host batch of the dataset's windows, or resident windows cut on the
+        device."""
         if use_dev:
             pairs = np.ascontiguousarray(index_np[np.asarray(idx, np.int64)])
-            return window_batch(data, torch.from_numpy(pairs).to(device), seq_len,
-                                with_pos=True)
+            return pair_batch(torch.from_numpy(pairs).to(device))
         raw = dataset.batch(idx)
-        batch = {k: torch.from_numpy(raw[k]).to(device) for k in ("obs", "pos", "next_pos")}
-        batch["weight"] = torch.ones(len(idx), dtype=torch.float32, device=device)
-        return batch
+        batch = {k: torch.from_numpy(raw[k]) for k in ("obs", "pos", "next_pos")}
+        batch["weight"] = torch.ones(len(idx), dtype=torch.float32)
+        return host_share(mesh, batch, device)
 
     def run(batches, train: bool):
         """Losses over an iterable of batches (train steps or evaluations),
@@ -148,10 +160,9 @@ def train_baseline(dataset: TrajectoryDataset,
         pending = []
         for batch in batches:
             if train:
-                opt_state, loss = train_step(params, opt_state, loss_fn, batch, config)
+                opt_state, loss = train_step(params, opt_state, loss_fn, batch, config, mesh)
             else:
-                with torch.no_grad():
-                    loss = loss_fn(batch)
+                loss = eval_loss(loss_fn, batch, mesh)
             pending.append(loss)
         return _total(pending), len(pending)
 
@@ -163,15 +174,13 @@ def train_baseline(dataset: TrajectoryDataset,
         t0 = time.time()
         perm = rng.permutation(train_idx)
         if use_dev:
-            tot, nb = run((window_batch(data, p, seq_len, with_pos=True)
-                           for p in epoch_pairs(perm)), True)
+            tot, nb = run((pair_batch(p) for p in epoch_pairs(perm)), True)
         else:
             tot, nb = run((batch_at(perm[i: i + B]) for i in range(0, len(perm) - B + 1, B)),
                           True)
         # A validation split shorter than a batch is one short batch.
         if use_dev and len(val_idx) >= B:
-            vtot, vnb = run((window_batch(data, p, seq_len, with_pos=True)
-                             for p in epoch_pairs(val_idx)), False)
+            vtot, vnb = run((pair_batch(p) for p in epoch_pairs(val_idx)), False)
         else:
             vtot, vnb = run((batch_at(val_idx[i: i + B])
                              for i in range(0, max(len(val_idx) - B + 1, 1), B)), False)
@@ -180,7 +189,7 @@ def train_baseline(dataset: TrajectoryDataset,
         history["val_loss"].append(val_loss)
         if val_loss < best_val:
             best_val, best_params = val_loss, snapshot()
-        if verbose:
+        if verbose and mesh.rank == 0:
             print(f"[{config.model}] Epoch {epoch:3d} | Train: {train_loss:.6f}"
                   f" | Val: {val_loss:.6f} | {time.time() - t0:.1f}s", flush=True)
     return {"model": model, "params": best_params, "final_params": snapshot(),
@@ -189,8 +198,10 @@ def train_baseline(dataset: TrajectoryDataset,
 
 def main(argv=None):
     """The CLI: scripts/train_baselines.py's flags and defaults, on the card
-    unless --device says otherwise."""
+    unless --device says otherwise; data parallel under torchrun (rank 0
+    prints)."""
     import argparse
+    import os
     from pathlib import Path
 
     p = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -219,7 +230,8 @@ def main(argv=None):
                                   batch_size=args.batch_size, hidden_dim=args.hidden_dim,
                                   device=args.device)
         out = train_baseline(ds, cfg)
-        print(f"[{model}] best val loss: {out['best_val_loss']:.6f}")
+        if int(os.environ.get("RANK", 0)) == 0:
+            print(f"[{model}] best val loss: {out['best_val_loss']:.6f}")
 
 
 if __name__ == "__main__":

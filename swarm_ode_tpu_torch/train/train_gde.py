@@ -20,6 +20,20 @@ shuffles and batches come from `np.random.RandomState(config.seed)` in the
 JAX trainer's order, so both packages take the same steps on the same
 batches.
 
+Data parallel as the JAX trainer's `dp` mesh, over one rank per device
+(parallel/mesh.py; `torchrun --nproc_per_node=N -m
+swarm_ode_tpu_torch.train.train_gde ...` on N cards). Every rank draws the
+same split and shuffles and holds the parameters, replicated from rank 0.
+A batch of B resident windows that divides over the n ranks is split: each
+rank computes its B/n windows' share of the loss (their weighted sum over
+the whole batch's weight), and the shares and their gradients are summed
+over the ranks before the clip and AdamW, so the parameters stay equal on
+every rank. A batch that does not divide is computed whole by every rank,
+as JAX replicates it, and nothing is summed. Host-gathered batches are
+padded to a multiple of n with weight-0 windows and split. Rank 0 writes
+the checkpoints and the logs; every rank restores. On one rank no batch is
+split and nothing is communicated.
+
     python -m swarm_ode_tpu_torch.train.train_gde --files data/*.h5
 """
 from __future__ import annotations
@@ -34,6 +48,7 @@ import torch
 from swarm_ode_tpu_torch.data.dataset import TrajectoryDataset, train_val_split
 from swarm_ode_tpu_torch.graphs.temporal import build_temporal_batch
 from swarm_ode_tpu_torch.models.gde import GraphODE
+from swarm_ode_tpu_torch.parallel import mesh as meshlib
 from swarm_ode_tpu_torch.utils.checkpoint import CheckpointManager
 from swarm_ode_tpu_torch.utils.optim import (AdamWState, adamw_init, adamw_update,
                                              clip_by_global_norm)
@@ -80,6 +95,16 @@ class GDETrainConfig:
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "uint8": torch.uint8}
 
 
+def weighted_mean(losses: torch.Tensor, batch: Dict) -> torch.Tensor:
+    """sum(losses * weight) / max(sum(weight), 1) over the batch's windows.
+    Where a rank holds a share of a batch, the batch's `weight_total` (the
+    whole batch's weight sum) is the denominator, so the ranks' results sum
+    to the whole batch's."""
+    weights, total = batch["weight"], batch.get("weight_total")
+    den = weights.sum().clamp(min=1.0) if total is None else max(total, 1.0)
+    return (losses * weights).sum() / den
+
+
 def _batch_loss(model: GraphODE, num_agvs, distance_threshold, horizon: int = 1,
                 horizon_weights=None):
     """loss_fn(batch) on the structured batched path, with the model's
@@ -88,8 +113,8 @@ def _batch_loss(model: GraphODE, num_agvs, distance_threshold, horizon: int = 1,
     1..horizon against `next_pos` (B, Hz, N, 2), each horizon weighted by
     the batch's `hweight` (B, Hz) times `horizon_weights` and normalised by
     their sum. Windows are weighted by `weight` (B,) and normalised by its
-    sum. Raises ValueError on horizon_weights of the wrong length or with
-    horizon 1."""
+    sum (`weighted_mean`). Raises ValueError on horizon_weights of the wrong
+    length or with horizon 1."""
     if horizon_weights is not None:
         if len(horizon_weights) != horizon:
             raise ValueError(f"horizon_weights needs length {horizon}, got "
@@ -120,8 +145,7 @@ def _batch_loss(model: GraphODE, num_agvs, distance_threshold, horizon: int = 1,
                                                      device=obs.device)
                 hw = hw * hw_on[obs.device][:, None]
             losses = (per * hw).sum(dim=0) / hw.sum(dim=0).clamp(min=1.0)
-        weights = batch["weight"]
-        return (losses * weights).sum() / weights.sum().clamp(min=1.0)
+        return weighted_mean(losses, batch)
 
     return loss_fn
 
@@ -206,17 +230,60 @@ def window_batch(data, pairs, seq_len: int, horizon: int = 1, true_len=None,
     return batch
 
 
+def pair_share(mesh: meshlib.Mesh, data, pairs: torch.Tensor, seq_len: int, **window) -> Dict:
+    """window_batch of (rows, 2) pairs on the device. On several ranks and
+    rows that divide over them, this rank's share of the batch, with the
+    whole batch's `weight_total`; otherwise the whole batch, which every
+    rank computes (JAX replicates a batch that does not divide)."""
+    if mesh.size == 1 or pairs.shape[0] % mesh.size:
+        return window_batch(data, pairs, seq_len, **window)
+    batch = window_batch(data, meshlib.shard_batch(mesh, pairs), seq_len, **window)
+    batch["weight_total"] = float(pairs.shape[0])
+    return batch
+
+
+def host_share(mesh: meshlib.Mesh, batch: Dict[str, torch.Tensor], device) -> Dict:
+    """A host batch (CPU tensors, its 'weight' included) on the device. On
+    several ranks it is first padded to a multiple of them with weight-0
+    windows, and only this rank's share goes up, with the whole batch's
+    `weight_total`."""
+    if mesh.size == 1:
+        return {k: v.to(device) for k, v in batch.items()}
+    total = float(batch["weight"].sum())
+    batch, valid = meshlib.pad_to_multiple(batch, mesh.size)
+    batch["weight"] = batch["weight"] * valid
+    batch = {k: v.to(device) for k, v in meshlib.shard_batch(mesh, batch).items()}
+    batch["weight_total"] = total
+    return batch
+
+
+def _shared(mesh, batch) -> bool:
+    return mesh is not None and "weight_total" in batch
+
+
 def train_step(params: Sequence[torch.Tensor], opt_state: AdamWState, loss_fn, batch: Dict,
-               config: GDETrainConfig):
+               config: GDETrainConfig, mesh: Optional[meshlib.Mesh] = None):
     """One step: the loss and its gradients, the clip, AdamW on `params` in
     place. Returns (new optimizer state, the loss, detached, on the
-    device); nothing waits on the host."""
+    device); nothing waits on the host. Where the batch is this rank's
+    share (it carries `weight_total`), the loss and the gradients are
+    first summed over the mesh's dp axis, in one collective."""
     loss = loss_fn(batch)
     grads = torch.autograd.grad(loss, params)
     with torch.no_grad():
+        if _shared(mesh, batch):
+            *grads, loss = meshlib.all_reduce_sum(mesh, [*grads, loss])
         grads = clip_by_global_norm(grads, config.grad_clip)
         opt_state = adamw_update(params, grads, opt_state, config.lr, config.weight_decay)
     return opt_state, loss.detach()
+
+
+@torch.no_grad()
+def eval_loss(loss_fn, batch: Dict, mesh: Optional[meshlib.Mesh] = None) -> torch.Tensor:
+    """The batch's loss, without gradients; a rank's share of a batch
+    summed over the mesh's dp axis."""
+    loss = loss_fn(batch)
+    return meshlib.all_reduce_sum(mesh, [loss])[0] if _shared(mesh, batch) else loss
 
 
 def _total(losses: List[torch.Tensor]) -> float:
@@ -233,11 +300,14 @@ def train_gde(dataset: TrajectoryDataset, config: GDETrainConfig = GDETrainConfi
     state dict to start from (convert.gde_params_from_numpy of a JAX init,
     say); otherwise the parameters are drawn as flax draws them
     (`GraphODE.init_`) from torch.Generator(device).manual_seed(seed).
+    Data parallel over the ranks of the default process group when one is
+    up (parallel/mesh.make_mesh; "cuda" is then each rank's own card).
 
     Returns {'model', 'params' (a copy of the best epoch's state dict),
     'final_params', 'opt_state' (the final AdamWState), 'history',
     'best_val_loss'}."""
-    device = torch.device(device)
+    mesh = meshlib.make_mesh(("dp",), device=device)
+    device = mesh.device
     model = GraphODE(node_dim=dataset.obs_dim, num_agvs=dataset.num_agvs,
                      num_pickers=dataset.num_pickers, hidden_dim=config.hidden_dim,
                      ode_solver=config.ode_solver).to(device)
@@ -247,6 +317,8 @@ def train_gde(dataset: TrajectoryDataset, config: GDETrainConfig = GDETrainConfi
         model.init_(torch.Generator(device).manual_seed(config.seed))
     params = list(model.parameters())
     opt_state = adamw_init(params)
+    with torch.no_grad():
+        meshlib.replicate(mesh, (params, opt_state))
 
     def snapshot():
         return {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -306,16 +378,19 @@ def train_gde(dataset: TrajectoryDataset, config: GDETrainConfig = GDETrainConfi
         n_full = len(perm) // B
         return device_pairs(perm[: n_full * B], remap).view(n_full, B, 2)
 
+    def pair_batch(pairs, sdata=None):
+        return pair_share(mesh, sdata or data, pairs, seq_len, horizon=config.horizon,
+                          true_len=true_len)
+
     def batch_at(idx, sdata=None, remap=None):
-        """The loss's batch for windows `idx`, on the device."""
+        """The loss's batch (this rank's share on several) for windows `idx`,
+        on the device."""
         if use_dev:
-            return window_batch(sdata or data, device_pairs(idx, remap), seq_len,
-                                config.horizon, true_len)
+            return pair_batch(device_pairs(idx, remap), sdata)
         raw = dataset.batch(idx)
-        return {"obs": torch.from_numpy(raw["obs"]).to(device),
-                "count": torch.from_numpy(raw["count"]).to(device),
-                "next_pos": torch.from_numpy(raw["next_pos"]).to(device),
-                "weight": torch.ones(len(idx), dtype=torch.float32, device=device)}
+        batch = {k: torch.from_numpy(raw[k]) for k in ("obs", "count", "next_pos")}
+        batch["weight"] = torch.ones(len(idx), dtype=torch.float32)
+        return host_share(mesh, batch, device)
 
     def run(batches, chunk, train: bool):
         """Losses over an iterable of batches: train steps or evaluations,
@@ -325,10 +400,9 @@ def train_gde(dataset: TrajectoryDataset, config: GDETrainConfig = GDETrainConfi
         tot, n, pending = 0.0, 0, []
         for batch in batches:
             if train:
-                opt_state, loss = train_step(params, opt_state, loss_fn, batch, config)
+                opt_state, loss = train_step(params, opt_state, loss_fn, batch, config, mesh)
             else:
-                with torch.no_grad():
-                    loss = loss_fn(batch)
+                loss = eval_loss(loss_fn, batch, mesh)
             pending.append(loss)
             if len(pending) == chunk:
                 tot, n, pending = tot + _total(pending), n + len(pending), []
@@ -337,8 +411,7 @@ def train_gde(dataset: TrajectoryDataset, config: GDETrainConfig = GDETrainConfi
     def scan(pairs, train: bool, sdata=None):
         """`run` over the batches of an uploaded (n_batches, B, 2) pair
         tensor, read back every `epoch_scan_chunk` batches."""
-        return run((window_batch(sdata or data, p, seq_len, config.horizon, true_len)
-                    for p in pairs), config.epoch_scan_chunk, train)
+        return run((pair_batch(p, sdata) for p in pairs), config.epoch_scan_chunk, train)
 
     if sharded:
         # Episode-level split when rotating shards (no window leaks across
@@ -376,8 +449,11 @@ def train_gde(dataset: TrajectoryDataset, config: GDETrainConfig = GDETrainConfi
             opt = restored["opt_state"]
             opt_state = AdamWState(opt["count"], list(opt["mu"]), list(opt["nu"]))
             start_epoch = restored["epoch"] + 1
-            if verbose:
+            if verbose and mesh.rank == 0:
                 print(f"Resumed from checkpoint at epoch {latest}")
+        if mesh.size > 1:
+            # No rank trains (and rank 0 writes) before every rank has read.
+            torch.distributed.barrier()
 
     for epoch in range(start_epoch, config.num_epochs):
         t0 = time.time()
@@ -415,6 +491,8 @@ def train_gde(dataset: TrajectoryDataset, config: GDETrainConfig = GDETrainConfi
         if val_loss < best_val:
             best_val = val_loss
             best_params = snapshot()
+        if mesh.rank != 0:
+            continue
         if ckpt and (val_loss == best_val or epoch % config.checkpoint_every == 0):
             ckpt.save(epoch, ckpt_state(epoch), force=True)
         if logger:
@@ -435,8 +513,10 @@ def train_gde(dataset: TrajectoryDataset, config: GDETrainConfig = GDETrainConfi
 
 def main(argv=None):
     """The CLI: scripts/train_gde.py's flags and defaults, on the card
-    unless --device says otherwise."""
+    unless --device says otherwise; data parallel under torchrun (rank 0
+    prints and logs)."""
     import argparse
+    import os
     from pathlib import Path
 
     p = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -463,15 +543,19 @@ def main(argv=None):
     if not files:
         raise SystemExit("No dataset files found; run scripts/collect_data.py first.")
     ds = TrajectoryDataset.from_h5(files, seq_len=args.seq_len, max_episodes=args.max_episodes)
-    print(f"Loaded {len(ds)} step pairs from {len(files)} files "
-          f"(node dim {ds.obs_dim}; {ds.num_agvs} AGVs, {ds.num_pickers} Pickers)")
+    lead = int(os.environ.get("RANK", 0)) == 0
+    if lead:
+        print(f"Loaded {len(ds)} step pairs from {len(files)} files "
+              f"(node dim {ds.obs_dim}; {ds.num_agvs} AGVs, {ds.num_pickers} Pickers)")
     cfg = GDETrainConfig(num_epochs=args.num_epochs, batch_size=args.batch_size, lr=args.lr,
                          weight_decay=args.weight_decay, hidden_dim=args.hidden_dim,
                          ode_solver=args.ode_solver, checkpoint_dir=args.checkpoint_dir)
-    logger = MetricsLogger("graph-ode-warehouse", config=vars(args), out_dir="runs")
+    logger = (MetricsLogger("graph-ode-warehouse", config=vars(args), out_dir="runs")
+              if lead else None)
     out = train_gde(ds, cfg, logger=logger, device=args.device)
-    logger.finish()
-    print(f"Best val loss: {out['best_val_loss']:.6f}")
+    if lead:
+        logger.finish()
+        print(f"Best val loss: {out['best_val_loss']:.6f}")
 
 
 if __name__ == "__main__":

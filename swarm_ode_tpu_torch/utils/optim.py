@@ -5,7 +5,7 @@ from optax's layout.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -24,11 +24,14 @@ def adamw_init(params: Sequence[torch.Tensor]) -> AdamWState:
                       [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: each g as it is when the global norm is
     below max_norm, else g / norm * max_norm (not clip_grad_norm_'s
-    max_norm / (norm + 1e-6) factor)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    max_norm / (norm + 1e-6) factor). norm: the global norm where the
+    caller computed it (over leaves stored in shards on several ranks)."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     scaled = torch._foreach_mul(torch._foreach_div(grads, norm), max_norm)
     keep = norm < max_norm
     return [torch.where(keep, g, s) for g, s in zip(grads, scaled)]

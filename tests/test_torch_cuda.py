@@ -1002,3 +1002,47 @@ def test_cpu_exported_policy_serves_on_the_card(cuda):
     served = serving.load_policy(serving.export_policy(policy, obs), device="cuda")
     got = served(obs.to(cuda))
     assert got.device.type == "cuda" and torch.equal(got.cpu(), policy(obs))
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_equals_no_group(cuda, tmp_path):
+    """train_gde (2 epochs) and run_mappo (mesh_devices=1 against 0) on the
+    card inside a process group of one NCCL rank (a file store) equal the
+    runs without a group, bit for bit: parameters and history; the mesh
+    takes the card cuda:0."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from swarm_ode_tpu_torch.data.dataset import TrajectoryDataset
+    from swarm_ode_tpu_torch.parallel.mesh import make_mesh
+    from swarm_ode_tpu_torch.rl import ppo
+    from swarm_ode_tpu_torch.train import train_gde as tg
+
+    rng = np.random.RandomState(0)
+    eps = [rng.randint(0, 9, size=(30, 5, 19)).astype(np.float32) for _ in range(3)]
+    ds = TrajectoryDataset(episodes=eps, num_agvs=3, num_pickers=2, seq_len=5)
+    gcfg = tg.GDETrainConfig(num_epochs=2, batch_size=8, hidden_dim=16)
+    mcfg = ppo.MAPPOConfig(env_id="tarware-tiny-3agvs-2pickers-partialobs-v1", hidden_dim=8,
+                           num_envs=2, num_strides=2, steps_override=16, minibatch=8, seed=1)
+
+    def runs(mesh_devices):
+        return (tg.train_gde(ds, gcfg, verbose=False),
+                ppo.run_mappo(dataclasses.replace(mcfg, mesh_devices=mesh_devices),
+                              verbose=False))
+
+    want = runs(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        assert make_mesh(("dp",)).device == torch.device("cuda", 0)
+        got = runs(1)
+    finally:
+        dist.destroy_process_group()
+    assert got[0]["history"] == want[0]["history"]
+    assert all(torch.equal(v, want[0]["final_params"][k]) for k, v in got[0]["final_params"].items())
+    drop = ("seconds", "collect_seconds", "update_seconds")
+    assert ([{k: v for k, v in h.items() if k not in drop} for h in got[1]["history"]]
+            == [{k: v for k, v in h.items() if k not in drop} for h in want[1]["history"]])
+    assert all(torch.equal(v, want[1]["actor_params"][k]) for k, v in got[1]["actor_params"].items())

@@ -68,6 +68,9 @@ SLICE_MODULES = (
     "swarm_ode_tpu_torch.train.train_bc",
     "swarm_ode_tpu_torch.models.gru",
     "swarm_ode_tpu_torch.train.train_baselines",
+    "swarm_ode_tpu_torch.utils.tree",
+    "swarm_ode_tpu_torch.utils.profiling",
+    "swarm_ode_tpu_torch.parallel.mesh",
 )
 # Modules a fresh interpreter must not load when it imports the port: JAX,
 # the JAX package and its training stack, h5py (needed only to decode or

@@ -8,8 +8,8 @@ returns within 1e-5; the update on JAX's trajectory with JAX's
 permutations, its losses and the parameters after it within 1e-5 (JAX at
 HIGHEST); the greedy probe after the update, on JAX's resets and step
 draws, with the same mean return and deliveries. Then the warm start from
-a behaviour-cloning checkpoint, the stride checkpoint, and mesh_devices > 0
-raising."""
+a behaviour-cloning checkpoint, the stride checkpoint, and mesh_devices'
+checks (tests/test_torch_mesh.py runs it on several ranks)."""
 import dataclasses
 
 import jax
@@ -172,5 +172,11 @@ def test_warm_start_and_stride_checkpoint(tmp_path):
 
 
 def test_mesh_devices_raise():
-    with pytest.raises(ValueError, match="mesh_devices"):
+    """mesh_devices raises JAX's ValueError where num_envs does not divide
+    over it, and where the process group does not have that many ranks (no
+    group here: one rank); mesh_devices=1 runs on the one rank."""
+    with pytest.raises(ValueError, match="num_envs=2 must divide over mesh_devices=3"):
+        pppo.MappoRun(pppo.MAPPOConfig(**CFG, mesh_devices=3, device="cpu"))
+    with pytest.raises(ValueError, match="mesh_devices=2 needs a process group"):
         pppo.MappoRun(pppo.MAPPOConfig(**CFG, mesh_devices=2, device="cpu"))
+    assert pppo.MappoRun(pppo.MAPPOConfig(**CFG, mesh_devices=1, device="cpu")).mesh.size == 1

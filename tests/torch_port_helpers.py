@@ -482,3 +482,27 @@ def write_committed_weights(out_dir=REPO / "swarm_ode_tpu_torch" / "weights") ->
     for name in COMMITTED_BLOBS:
         leaves, meta = blob_weights(name)
         np.savez(out_dir / f"{name}.npz", meta=np.array(json.dumps(meta, sort_keys=True)), **leaves)
+
+
+def sharded_heuristic_rollout(env_id: str, B: int, T: int, seed: int) -> dict:
+    """This rank's share of a heuristic rollout of B envs over the process
+    group's ranks (a rank function for parallel.mesh.launch; in a process
+    without a group, the whole rollout): the resets and every step's draws
+    are made for all B from one seeded generator, as one device would make
+    them, and each rank keeps its B/n envs (mesh.shard_batch). Returns its
+    (T, B/n, ...) agent positions, actions, rewards and deliveries."""
+    from swarm_ode_tpu_torch.env.step import draw_noise, reset
+    from swarm_ode_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    mesh = make_mesh(("dp",), device="cpu")
+    cfg = PEnvConfig.from_env_id(env_id)
+    lay = pbuild_layout(cfg)
+    params = pmake_params(cfg, lay, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    state = shard_batch(mesh, reset(params, B, g))
+    noise = [shard_batch(mesh, draw_noise(params, B, g)) for _ in range(T)]
+    ro = heuristic_rollout(params, lay, B // mesh.size, T, state=state, noise=noise, record=True)
+    return {"xy": torch.stack([s.agent_xy for *_, s in ro.trace]),
+            "actions": torch.stack([a for a, *_ in ro.trace]),
+            "rewards": torch.stack([r for _, r, *_ in ro.trace]),
+            "deliveries": torch.stack([i["shelf_deliveries"] for _, _, i, _ in ro.trace])}
