@@ -189,7 +189,18 @@ Phases, one line of output each (any failure exits non-zero):
      (tiny, 4 envs, 2 strides of 30 steps) each equal the run without a
      process group bit for bit (parameters and history; a second run
      without a group, the control, equal too), counts zeroed before the
-     mesh MAPPO run and read after (K1 once a collected step).
+     mesh MAPPO run and read after (K1 once a collected step);
+ 18. trajectory evaluation (analysis.py): the committed flagship
+     gde_medium_h4w (convert.committed_params; 5 x 28 x 435 windows, hidden
+     64) scored by evaluate_gde over 1,024 windows of three of the datagen
+     phase's episodes at batch 64, K4's count zeroed before and read after
+     (batches x its count in one batch, 3: one Euler step, three SAGE
+     layers); the card's predictions against the CPU's within 1e-4 of the
+     largest and the metrics within what that moves (`assert_eval_agrees`);
+     the mean error under 1.0 cell and success@2.0 above 0.9, printed
+     beside RESULTS.md's 0.301 / 96.4% / 0.875 (other data: no gate); the
+     four baselines (seeded weights, hidden 128) over 256 windows, card
+     against CPU; windows/s and the phase's seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `bound_ms` is the least time the
@@ -326,6 +337,19 @@ MESH_MAPPO = dict(env_id="tarware-tiny-3agvs-2pickers-partialobs-v1", net="gnn",
 # Card against CPU for one MAPPO minibatch: a collection of this many steps
 # (8 envs: 160 samples, of which the minibatch takes 128).
 MAPPO_CHECK_STEPS = 20
+# Trajectory evaluation: the committed flagship (gde_medium_h4w) scored by
+# analysis.evaluate_gde over the first EVAL_WINDOWS windows of the first
+# EVAL_EPISODES episodes that the datagen phase captured, in batches of
+# EVAL_BATCH (the collision metric's (1, windows, windows, 28) distances:
+# 117 MB at 1,024); the four baselines (seeded weights, BASE_HIDDEN) over
+# BASE_EVAL_WINDOWS. Card against CPU: predictions within 1e-4 of the
+# largest; the metrics within what that moves (assert_eval_agrees).
+# Gates on the flagship: next-step mean error under EVAL_MAX_ERROR cells,
+# success@2.0 above EVAL_MIN_SUCCESS. RESULTS.md's numbers for it (other
+# data: printed beside, no gate).
+EVAL_EPISODES, EVAL_WINDOWS, EVAL_BATCH, BASE_EVAL_WINDOWS = 3, 1024, 64, 256
+EVAL_PRED_RTOL, EVAL_MAX_ERROR, EVAL_MIN_SUCCESS = 1e-4, 1.0, 0.9
+RESULTS_FLAGSHIP = {"mean_error": 0.301, "success_rate@1.0": 0.964, "collision_f1": 0.875}
 
 
 def say(phase: str, msg: str) -> None:
@@ -1720,7 +1744,8 @@ def phase_datagen(layout_cache, smi):
     host arrays the HDF5 writer takes (the writer needs h5py, which the
     card's host need not have).
     Counts zeroed before and read after: K1 once a step. Returns
-    (K1 launches, the numbers printed)."""
+    (K1 launches, the numbers printed, the first EVAL_EPISODES episodes'
+    observations (E, T, A, D) float16 for the evaluation phase)."""
     import numpy as np
     import torch
 
@@ -1769,9 +1794,10 @@ def phase_datagen(layout_cache, smi):
     lo, hi = 0.9 * JAX_PARITY["deliveries"], 1.1 * JAX_PARITY["deliveries"]
     if not lo <= got["deliveries"] <= hi:
         fail("datagen", f"mean deliveries {got['deliveries']:.2f} outside [{lo:.1f}, {hi:.1f}]")
+    episodes = traj["observations"][:EVAL_EPISODES].copy()
     del traj
     return k1, {"env_steps_per_sec": rate, "mb_per_chunk": mb_chunk,
-                "busy_share": busy_step / wall_step, **got}
+                "busy_share": busy_step / wall_step, **got}, episodes
 
 
 def phase_env_api(layout_cache):
@@ -3351,6 +3377,141 @@ def phase_mesh(layout_cache, smi, main_path_rate: float):
     return {"MAPPO collection, one NCCL rank": k1}
 
 
+def phase_evaluate(layout_cache, smi, episodes):
+    """Trajectory evaluation (analysis.py) on the card: the committed
+    flagship gde_medium_h4w (convert.committed_params; windows of
+    5 x 28 x 435, hidden 64) scored by evaluate_gde over EVAL_WINDOWS
+    windows of the datagen phase's episodes at batch EVAL_BATCH, K4's
+    count zeroed before and read after; the same predictions on the CPU
+    (assert_eval_agrees); the mean error and success@2.0 gates; the four
+    baselines at BASE_HIDDEN, card against CPU. Returns K4's launches in
+    the counted evaluation."""
+    import numpy as np
+    import torch
+
+    from swarm_ode_tpu_torch import analysis, convert
+    from swarm_ode_tpu_torch.data.dataset import TrajectoryDataset
+    from swarm_ode_tpu_torch.models.gde import GraphODE
+    from swarm_ode_tpu_torch.ops import segment_pallas
+    from swarm_ode_tpu_torch.train.train_baselines import MODEL_FACTORIES
+
+    t_phase = time.perf_counter()
+    _, _, pp = layout_cache["medium"]
+    ds = TrajectoryDataset(episodes=list(episodes), num_agvs=pp.num_agvs,
+                           num_pickers=pp.num_pickers, seq_len=WINDOW)
+    meta, sd = convert.committed_params("gde_medium_h4w")
+    _, sd_cpu = convert.committed_params("gde_medium_h4w", device="cpu")
+    model = GraphODE(meta["obs_dim"], pp.num_agvs, pp.num_pickers, meta["hidden_dim"], "euler")
+    windows = range(EVAL_WINDOWS)
+    n_batches = -(-EVAL_WINDOWS // EVAL_BATCH)
+
+    # One batch first, counted alone: K4's launches in a batch (one Euler
+    # step over t_span = [0, 1]); it also warms the path up.
+    segment_pallas.LAUNCHES = 0
+    analysis.evaluate_gde(model, sd, ds, range(EVAL_BATCH), EVAL_BATCH)
+    per_batch = segment_pallas.LAUNCHES
+    torch.cuda.synchronize()
+    segment_pallas.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = analysis.evaluate_gde(model, sd, ds, windows, EVAL_BATCH)
+    eval_s = time.perf_counter() - t0
+    k4 = segment_pallas.LAUNCHES
+    if per_batch != 3 or k4 != n_batches * per_batch:
+        fail("evaluate", f"K4 launched {k4} times in {n_batches} batches ({per_batch} in one "
+             f"batch; expected 3: one Euler step, three SAGE layers)")
+
+    predict = analysis.gde_predictor(model, sd, pp.num_agvs)
+    t0 = time.perf_counter()
+    pred, target = analysis.predict_windows(predict, ds, windows, EVAL_BATCH)
+    predict_s = time.perf_counter() - t0
+    predict_cpu = analysis.gde_predictor(model, sd_cpu, pp.num_agvs, device="cpu")
+    pred_cpu, target_cpu = analysis.predict_windows(predict_cpu, ds, windows, EVAL_BATCH,
+                                                    device="cpu")
+    if not (np.array_equal(target, target_cpu) and pred.shape == (EVAL_WINDOWS, pp.num_agents, 2)
+            and np.isfinite(pred).all()):
+        fail("evaluate", f"predictions of shape {pred.shape} or targets differ from the CPU's")
+    if analysis.prediction_metrics(pred, target) != got:
+        fail("evaluate", "evaluate_gde's metrics are not those of its own predictions")
+    cpu = analysis.prediction_metrics(pred_cpu, target_cpu)
+    err = assert_eval_agrees("gde_medium_h4w", got, cpu, pred, pred_cpu, target)
+    say("evaluate", f"gde_medium_h4w (committed weights) over {EVAL_WINDOWS} medium windows of "
+        f"{EVAL_EPISODES} datagen episodes, batch {EVAL_BATCH}: K4 launches {k4} in {n_batches} "
+        f"batches ({per_batch} a batch); evaluate_gde {eval_s:.3f} s "
+        f"({EVAL_WINDOWS / eval_s:.1f} windows/s with the host metrics), predictions "
+        f"{predict_s:.3f} s ({EVAL_WINDOWS / predict_s:.1f} windows/s); card vs CPU "
+        f"predictions max abs err {err:.3e}; on {smi}")
+    shown = ", ".join(f"{k} {got[k]:.5f} (RESULTS.md {v})" for k, v in RESULTS_FLAGSHIP.items())
+    say("evaluate", f"gde_medium_h4w next step: {shown}; success@0.5 "
+        f"{got['success_rate@0.5']:.5f}, success@2.0 {got['success_rate@2.0']:.5f}, max error "
+        f"{got['max_error']:.5f} (other data than RESULTS.md's: no gate on the comparison)")
+    if not (got["mean_error"] < EVAL_MAX_ERROR and got["success_rate@2.0"] > EVAL_MIN_SUCCESS):
+        fail("evaluate", f"the committed model scores mean error {got['mean_error']} and "
+             f"success@2.0 {got['success_rate@2.0']}: not carried or not loaded")
+
+    base = range(BASE_EVAL_WINDOWS)
+    summary = []
+    for i, name in enumerate(sorted(MODEL_FACTORIES)):
+        net = MODEL_FACTORIES[name](ds, BASE_HIDDEN)
+        net.init_(torch.Generator().manual_seed(100 + i))
+        pos = name.startswith("pos_")
+        t0 = time.perf_counter()
+        res = analysis.evaluate_baseline(net, None, ds, pos, base, EVAL_BATCH)
+        base_s = time.perf_counter() - t0
+        p_card, _ = analysis.predict_windows(analysis.baseline_predictor(net, None, pos), ds,
+                                             base, EVAL_BATCH, with_pos=pos)
+        p_cpu, t_cpu = analysis.predict_windows(
+            analysis.baseline_predictor(net, None, pos, device="cpu"), ds, base, EVAL_BATCH,
+            device="cpu", with_pos=pos)
+        if analysis.prediction_metrics(p_card, t_cpu) != res:
+            fail("evaluate", f"{name}: evaluate_baseline's metrics are not its predictions'")
+        e = assert_eval_agrees(name, res, analysis.prediction_metrics(p_cpu, t_cpu), p_card,
+                               p_cpu, t_cpu)
+        summary.append(f"{name} mean error {res['mean_error']:.3f}, card vs CPU {e:.3e}, "
+                       f"{BASE_EVAL_WINDOWS / base_s:.1f} windows/s")
+    say("evaluate", f"baselines (seeded weights, hidden {BASE_HIDDEN}) over {BASE_EVAL_WINDOWS} "
+        f"windows: " + "; ".join(summary) + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return k4
+
+
+def assert_eval_agrees(what: str, got, ref, pred, ref_pred, target) -> float:
+    """Fails unless the metric dict `got` of predictions `pred` agrees with
+    `ref` of `ref_pred`, both against `target` (windows, N, 2): the
+    predictions within EVAL_PRED_RTOL of the largest (tol); the continuous
+    metrics within 3 tol (a prediction that moves by d moves an error by at
+    most d); a success rate only by the predictions whose error lies within
+    2 tol of its threshold; the collision flags (analysis.py's 4-D call:
+    one agent slot in two windows) only on pairs whose distance lies within
+    4 tol of 1.5, and the collision metrics equal where no flag moved.
+    Returns the predictions' largest difference."""
+    import numpy as np
+
+    def pair_distances(p):
+        d = np.linalg.norm(p[:, None] - p[None, :], axis=-1)  # (windows, windows, N)
+        iu = np.triu_indices(p.shape[0], k=1)
+        return d[iu[0], iu[1]].reshape(-1)
+
+    tol = EVAL_PRED_RTOL * max(1.0, float(np.abs(ref_pred).max()))
+    err = float(np.abs(pred - ref_pred).max())
+    if not err <= tol or list(got) != list(ref):
+        fail("evaluate", f"{what}: predictions differ by {err:.3e} (tolerance {tol:.2e})")
+    for k in ("mean_error", "median_error", "max_error", "std_error", "rmse"):
+        if not abs(got[k] - ref[k]) <= 3 * tol:
+            fail("evaluate", f"{what}: {k} {got[k]!r} against {ref[k]!r}")
+    dist = np.linalg.norm(ref_pred - target, axis=-1).reshape(-1)
+    for k in (k for k in ref if k.startswith("success_rate@")):
+        t = float(k.split("@")[1])
+        slack = np.sum(np.abs(dist - t) <= 2 * tol) / dist.size
+        if not abs(got[k] - ref[k]) <= slack:
+            fail("evaluate", f"{what}: {k} {got[k]!r} against {ref[k]!r} (slack {slack})")
+    d_got, d_ref = pair_distances(pred), pair_distances(ref_pred)
+    moved = (d_got < 1.5) != (d_ref < 1.5)
+    if not np.all(np.abs(d_ref[moved] - 1.5) <= 4 * tol):
+        fail("evaluate", f"{what}: a collision flag moved on a pair far from 1.5")
+    if not moved.any() and any(got[k] != ref[k] for k in ref if k.startswith("collision_")):
+        fail("evaluate", f"{what}: collision metrics differ with no flag moved")
+    return err
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3370,13 +3531,14 @@ def main() -> None:
     k4_launches, k4 = phase_gde(layouts, smi)
     k4_training, k4_trained = phase_train(layouts, smi)
     phase_distribution(layouts)
-    k1_datagen, _ = phase_datagen(layouts, smi)
+    k1_datagen, _, eval_episodes = phase_datagen(layouts, smi)
     k1_env_api = phase_env_api(layouts)
     k1_marl, _ = phase_marl(layouts, smi)
     k1_learn, _ = phase_learn_from_expert(layouts, smi)
     k1_recurrent, _ = phase_recurrent(layouts, smi)
     k1_export, k4_export = phase_export(layouts, smi)
     k1_mesh = phase_mesh(layouts, smi, main_path_rate)
+    k4_eval = phase_evaluate(layouts, smi, eval_episodes)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
     def entry(k, name, replaces, setting):
@@ -3424,7 +3586,8 @@ def main() -> None:
          # it aggregates structurally), then one served batch of its weights.
          "launches_by_path": {"GDE serving": k4_launches, "GDE training": k4_training,
                               "trained weights served": k4_trained,
-                              "exported GDE served": k4_export},
+                              "exported GDE served": k4_export,
+                              "trajectory evaluation": k4_eval},
          "max_abs_err": max(planned["max_abs_err"], narrow["max_abs_err"]),
          "ms": planned["ms"], "trace_ms": planned["trace_ms"], "plain_ms": planned["plain_ms"],
          "bound_ms": planned["bound_ms"],

@@ -35,10 +35,13 @@ Ported so far:
     `device_throughput`), `full_registration` below, and data parallelism
     over torch.distributed (`parallel/mesh.py`): `train_gde`,
     `train_baseline` and MAPPO's `mesh_devices` over one rank per device,
-    and `entry.dryrun_multichip`, a dp x mp train step on gloo ranks.
+    and `entry.dryrun_multichip`, a dp x mp train step on gloo ranks;
+  * trajectory-model evaluation (`analysis.py`): the metric suite,
+    `evaluate_gde` (K4 in every batch), `evaluate_baseline` and the
+    evaluation CLI (`python -m swarm_ode_tpu_torch.analysis`).
 The kernels' sources are under csrc/. What the JAX package has and the
-port does not: `analysis.py` and the A* helper (`native/astar.cpp`,
-`utils/astar.py`), which need no port.
+port does not: the A* helper (`native/astar.cpp`, `utils/astar.py`),
+which needs no port.
 
 This package imports torch and numpy and never jax. Importing it builds
 nothing; the CUDA kernels are compiled at first use on a GPU.
@@ -47,6 +50,7 @@ A function that takes a `device` (`env.state.make_params`, `make`,
 `graphs.temporal.init_window`, the `convert.*_from_numpy` loaders,
 `convert.committed_params`, `serving.load_policy` / `load_gde`,
 `train.train_gde.train_gde`, `data.collect.collect_data`, `entry.entry`,
+`analysis.evaluate_gde` / `evaluate_baseline`,
 `parallel.mesh.make_mesh`; and `train.run_rl.run_marl` through
 `RLRunConfig.device`) puts its tensors
 on the card unless the caller passes `device="cpu"`; without a card such a

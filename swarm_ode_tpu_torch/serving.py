@@ -120,9 +120,11 @@ def make_policy_fn(env_params: EnvParams, net: torch.nn.Module,
 class GDEPredictor(torch.nn.Module):
     """The GDE as a serving function; see `make_gde_fn`."""
 
-    def __init__(self, model: GraphODE, distance_threshold: float, horizon: int):
+    def __init__(self, model: GraphODE, distance_threshold: float, horizon: int,
+                 num_agvs: Optional[int] = None):
         super().__init__()
         self.model, self.distance_threshold, self.horizon = model, distance_threshold, horizon
+        self.num_agvs = model.num_agvs if num_agvs is None else num_agvs
 
     @torch.no_grad()
     def forward(self, obs: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -130,7 +132,7 @@ class GDEPredictor(torch.nn.Module):
         if single:
             obs, count = obs[None], count.reshape(1)
         t_span = torch.arange(self.horizon + 1, dtype=torch.float32, device=obs.device)
-        g = build_temporal_batch(obs, count, self.model.num_agvs, self.distance_threshold)
+        g = build_temporal_batch(obs, count, self.num_agvs, self.distance_threshold)
         traj = self.model.apply_batched(g, t_span, edges=temporal_edges(g))["trajectories"]
         B = obs.shape[0]
         newest = (count.long() - 1).clamp(min=0)
@@ -139,9 +141,12 @@ class GDEPredictor(torch.nn.Module):
 
 
 def make_gde_fn(model: GraphODE, params: Optional[Mapping[str, torch.Tensor]] = None,
-                distance_threshold: float = 5.0, horizon: int = 4) -> GDEPredictor:
+                distance_threshold: float = 5.0, horizon: int = 4,
+                num_agvs: Optional[int] = None) -> GDEPredictor:
     """The model as a serving function, after loading `params` (a state
-    dict, e.g. from convert.gde_params_from_numpy) into it when given.
+    dict, e.g. from convert.gde_params_from_numpy) into it when given. The
+    windows' graphs take the first `num_agvs` agents as AGVs (default the
+    model's `num_agvs`; JAX's evaluate_gde passes the dataset's).
 
     predict(obs, count): obs (W, N, D) float32 and count () int32 give
     (horizon+1, N, 2), the predicted (y, x) of the newest valid frame's
@@ -149,7 +154,7 @@ def make_gde_fn(model: GraphODE, params: Optional[Mapping[str, torch.Tensor]] = 
     count (B,) give (B, horizon+1, N, 2), the same as jax.vmap of it."""
     if params is not None:
         model.load_state_dict(params)
-    return GDEPredictor(model, distance_threshold, horizon)
+    return GDEPredictor(model, distance_threshold, horizon, num_agvs)
 
 
 def export_fn(fn: torch.nn.Module, *example_args: torch.Tensor) -> bytes:

@@ -71,6 +71,7 @@ SLICE_MODULES = (
     "swarm_ode_tpu_torch.utils.tree",
     "swarm_ode_tpu_torch.utils.profiling",
     "swarm_ode_tpu_torch.parallel.mesh",
+    "swarm_ode_tpu_torch.analysis",
 )
 # Modules a fresh interpreter must not load when it imports the port: JAX,
 # the JAX package and its training stack, h5py (needed only to decode or
@@ -223,6 +224,8 @@ def test_device_parameters_default_to_the_card():
         "swarm_ode_tpu_torch.convert.committed_params",
         "swarm_ode_tpu_torch.serving.load_policy",
         "swarm_ode_tpu_torch.serving.load_gde",
+        "swarm_ode_tpu_torch.analysis.evaluate_gde",
+        "swarm_ode_tpu_torch.analysis.evaluate_baseline",
     }
     assert {k for k, v in found.items() if v == "cuda"} >= entry_points
 
