@@ -78,8 +78,12 @@ Phases, one line of output each (any failure exits non-zero):
      within 1e-4 of the largest prediction; train ms per step and windows/s
      at B = 32 and 512 (best of 3 after a warm-up), peak memory, device
      events and busy share per step from torch.profiler traces;
- 10. 30 medium episodes of 500 steps: mean deliveries within 10% of the
-     JAX package's 85.13;
+ 10. 30 medium episodes of 500 steps through the `parity` command line
+     (`python -m swarm_ode_tpu_torch.policies.heuristic parity`, in this
+     process, one batched rollout): its reference table and JSON line
+     printed, mean deliveries within 10% of the JAX package's 85.13,
+     overflow 0, counts zeroed before and read after (K1 500 times: one
+     compacted launch a step for all 30 envs); its wall seconds;
  11. expert datagen: collect_batch at medium, B = 128 episodes of 500 steps
      in chunks of 100, up to the host arrays the HDF5 writer takes (the
      writer needs h5py, which the card's host need not have), counts
@@ -200,7 +204,12 @@ Phases, one line of output each (any failure exits non-zero):
      the mean error under 1.0 cell and success@2.0 above 0.9, printed
      beside RESULTS.md's 0.301 / 96.4% / 0.875 (other data: no gate); the
      four baselines (seeded weights, hidden 128) over 256 windows, card
-     against CPU; windows/s and the phase's seconds.
+     against CPU; windows/s and the phase's seconds;
+ 19. the `run` command line (`python -m swarm_ode_tpu_torch.policies.heuristic
+     run`, in this process): one medium episode of 500 steps at B = 1 on
+     the card, its stat line read back by the shared pattern
+     (`heuristic.STAT_LINE`) and equal to the episode's summary, counts
+     zeroed before and read after (K1 500 times), overflow 0; its FPS.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `bound_ms` is the least time the
@@ -1717,25 +1726,56 @@ def phase_train(layout_cache, smi):
     return k4_in_training, k4
 
 
-def phase_distribution(layout_cache):
+def run_cli(argv):
+    """The dispatcher's command line (`policies/heuristic.main`) in this
+    process: (what it returns, the lines it printed)."""
+    import contextlib
+    import io
+
+    from swarm_ode_tpu_torch.policies import heuristic
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = heuristic.main(argv)
+    return result, out.getvalue().splitlines()
+
+
+def phase_distribution(smi):
+    """30 medium episodes of 500 steps through `parity`'s command line on
+    the card (one batched rollout), K1's launches counted (zeroed before,
+    read after). Returns (K1 launches, wall seconds)."""
     import torch
 
-    from swarm_ode_tpu_torch.policies.heuristic import heuristic_rollout
+    from swarm_ode_tpu_torch.ops import bfs_bitpack
+    from swarm_ode_tpu_torch.policies import heuristic
 
-    _, lay, pp = layout_cache["medium"]
-    gen = torch.Generator(device="cuda").manual_seed(2024)
-    out = heuristic_rollout(pp, lay, 30, 500, gen)
-    got = {
-        "deliveries": float(out.deliveries.float().mean()),
-        "clashes": float(out.clashes.float().mean()),
-        "stucks": float(out.stucks.float().mean()),
-    }
+    torch.cuda.synchronize()
+    bfs_bitpack.LAUNCHES = 0
+    t0 = time.perf_counter()
+    totals, lines = run_cli(["parity", "--episodes", "30", "--seed", "2024"])
+    seconds = time.perf_counter() - t0
+    launches = bfs_bitpack.LAUNCHES
+    for line in lines:
+        say("distribution", line)
+    record = json.loads(lines[-1])
+    if (record["metric"] != "parity_medium_30ep"
+            or list(record["detail"]) != list(heuristic.PARITY_REFERENCE)
+            or len(lines) != 2 + len(heuristic.PARITY_REFERENCE)):
+        fail("distribution", "parity printed another table or JSON line than the reference's")
+    got = {"deliveries": float(totals["total_deliveries"].mean()),
+           "clashes": float(totals["total_clashes"].mean()),
+           "stucks": float(totals["total_stuck"].mean())}
+    overflow = int(totals["replan_overflow"].sum())
     say("distribution", "30 medium episodes x 500 steps, port vs JAX package: "
         + ", ".join(f"{k} {got[k]:.2f} vs {JAX_PARITY[k]}" for k in got)
-        + f"; overflow {int(out.replan_overflow.sum())}")
+        + f"; overflow {overflow}; K1 launches {launches}; parity's wall time {seconds:.2f} s "
+        f"(synchronised: the sums read back); on {smi}")
     lo, hi = 0.9 * JAX_PARITY["deliveries"], 1.1 * JAX_PARITY["deliveries"]
     if not lo <= got["deliveries"] <= hi:
         fail("distribution", f"mean deliveries {got['deliveries']:.2f} outside [{lo:.1f}, {hi:.1f}]")
+    if launches != 500 or overflow:
+        fail("distribution", f"K1 launched {launches} times (500 expected), overflow {overflow}")
+    return launches, seconds
 
 
 def phase_datagen(layout_cache, smi):
@@ -3512,6 +3552,46 @@ def assert_eval_agrees(what: str, got, ref, pred, ref_pred, target) -> float:
     return err
 
 
+def phase_cli(smi):
+    """`run`'s command line on the card: one medium episode at B = 1, its
+    stat line read back with the shared pattern, K1's launches counted
+    (zeroed before, read after). Returns (K1 launches, FPS)."""
+    import math
+
+    import torch
+
+    from swarm_ode_tpu_torch.ops import bfs_bitpack
+    from swarm_ode_tpu_torch.policies import heuristic
+
+    torch.cuda.synchronize()
+    bfs_bitpack.LAUNCHES = 0
+    episodes, lines = run_cli(["run", "--num_episodes", "1", "--seed", "0"])
+    launches = bfs_bitpack.LAUNCHES
+    if len(lines) != 1 or len(episodes) != 1:
+        fail("cli", f"run printed {len(lines)} lines for {len(episodes)} episodes, not one")
+    say("cli", lines[0])
+    m = heuristic.STAT_LINE.match(lines[0])
+    if m is None:
+        fail("cli", "run's stat line does not parse with heuristic.STAT_LINE")
+    s = episodes[0]
+    printed = dict(zip(heuristic.STAT_FIELDS, map(float, m.groups()[1:])))
+    fps = s["episode_length"] / s["seconds"]
+    for k, v in printed.items():
+        want = fps if k == "fps" else s[k]
+        if abs(v - want) > 0.005 + 1e-9 * abs(want):
+            fail("cli", f"the stat line's {k} {v} is not the episode's {want}")
+    if s["episode_length"] != 500 or not math.isfinite(s["global_episode_return"]) \
+            or s["total_deliveries"] <= 0:
+        fail("cli", f"episode of {s['episode_length']} steps, return "
+             f"{s['global_episode_return']}, {s['total_deliveries']} deliveries")
+    if launches != 500 or s["replan_overflow"]:
+        fail("cli", f"K1 launched {launches} times (500 expected), overflow {s['replan_overflow']}")
+    say("cli", f"run: one medium episode of 500 steps at B = 1 in {s['seconds']:.3f} s "
+        f"(synchronised: the trajectory read back), FPS {fps:.2f}; K1 launches {launches}, "
+        f"overflow 0; on {smi}")
+    return launches, fps
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3530,7 +3610,7 @@ def main() -> None:
     k3_launches = phase_full_field(layouts)
     k4_launches, k4 = phase_gde(layouts, smi)
     k4_training, k4_trained = phase_train(layouts, smi)
-    phase_distribution(layouts)
+    k1_parity, _ = phase_distribution(smi)
     k1_datagen, _, eval_episodes = phase_datagen(layouts, smi)
     k1_env_api = phase_env_api(layouts)
     k1_marl, _ = phase_marl(layouts, smi)
@@ -3539,6 +3619,7 @@ def main() -> None:
     k1_export, k4_export = phase_export(layouts, smi)
     k1_mesh = phase_mesh(layouts, smi, main_path_rate)
     k4_eval = phase_evaluate(layouts, smi, eval_episodes)
+    k1_run, _ = phase_cli(smi)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")
 
     def entry(k, name, replaces, setting):
@@ -3559,7 +3640,8 @@ def main() -> None:
     k1["launches_by_path"] = {
         "main path rollout": by_setting["bitpack32"]["K1"], "datagen": k1_datagen,
         "stochastic expert (card vs CPU)": k1_stochastic, **k1_env_api, **k1_marl,
-        **k1_learn, **k1_recurrent, "exported policy served": k1_export, **k1_mesh}
+        **k1_learn, **k1_recurrent, "exported policy served": k1_export, **k1_mesh,
+        "parity command line (30 envs)": k1_parity, "run command line (1 env)": k1_run}
 
     planned, narrow = k4[435], k4[HIDDEN]
     record = {"kernels": [

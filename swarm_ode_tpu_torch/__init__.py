@@ -38,7 +38,10 @@ Ported so far:
     and `entry.dryrun_multichip`, a dp x mp train step on gloo ranks;
   * trajectory-model evaluation (`analysis.py`): the metric suite,
     `evaluate_gde` (K4 in every batch), `evaluate_baseline` and the
-    evaluation CLI (`python -m swarm_ode_tpu_torch.analysis`).
+    evaluation CLI (`python -m swarm_ode_tpu_torch.analysis`);
+  * the runner scripts' command lines: `python -m
+    swarm_ode_tpu_torch.policies.heuristic run | parity | render` and
+    `python -m swarm_ode_tpu_torch.data.dataset build-cache`.
 The kernels' sources are under csrc/. What the JAX package has and the
 port does not: the A* helper (`native/astar.cpp`, `utils/astar.py`),
 which needs no port.

@@ -281,3 +281,32 @@ def train_val_split(
     perm = rng.permutation(n)
     n_val = int(n * val_frac)
     return perm[n_val:], perm[:n_val]
+
+
+def main(argv=None) -> None:
+    """`build-cache [globs ...]`: scripts/build_obs_cache.py. Builds the
+    observation sidecars of every HDF5 file the globs match (default
+    datasets/*.h5) up front, through `TrajectoryDataset._load_file(cache=True)`,
+    so that every later trainer and evaluator maps them (no h5py needed
+    then). A host path: it decodes HDF5 (h5py) and moves no tensor, so it
+    takes no --device."""
+    import argparse
+    import glob
+    import time
+
+    p = argparse.ArgumentParser(description=main.__doc__)
+    sub = p.add_subparsers(dest="command", required=True)
+    b = sub.add_parser("build-cache", help="pre-build the .obscache sidecars")
+    b.add_argument("globs", nargs="*", default=["datasets/*.h5"])
+    args = p.parse_args(argv)
+    files = sorted({f for pat in args.globs for f in glob.glob(pat)})
+    for f in files:
+        t0 = time.time()
+        eps, na, npk = TrajectoryDataset._load_file(f, cache=True)
+        print(f"{f}: {len(eps)} episodes, {na}+{npk} agents, {time.time() - t0:.0f}s",
+              flush=True)
+        del eps
+
+
+if __name__ == "__main__":
+    main()

@@ -19,21 +19,31 @@ noise from a PRNG key per step; here one step's draws are a `DispatchNoise`,
 drawn from a `torch.Generator` or passed in (the tests pass JAX's own).
 `reconstruct_state` re-derives the dispatcher's bookkeeping from the env
 state alone, which makes the stateless expert DAgger labels with.
+
+The module's command line, `python -m swarm_ode_tpu_torch.policies.heuristic
+run | parity | render`, is the JAX package's scripts/run_heuristic.py,
+eval_parity.py and render_episode.py (`main`).
 """
 from __future__ import annotations
 
 import dataclasses
+import re
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from swarm_ode_tpu_torch.config import EnvConfig
 from swarm_ode_tpu_torch.env import step as step_mod
-from swarm_ode_tpu_torch.env.layout import Layout
+from swarm_ode_tpu_torch.env.env import rollout
+from swarm_ode_tpu_torch.env.layout import Layout, build_layout
 from swarm_ode_tpu_torch.env.observations import empty_shelf_info
 from swarm_ode_tpu_torch.env.pathfinding import INF32
-from swarm_ode_tpu_torch.env.state import EnvParams, EnvState
+from swarm_ode_tpu_torch.env.rendering import render_state
+from swarm_ode_tpu_torch.env.state import EnvParams, EnvState, make_params
 from swarm_ode_tpu_torch.ops.take import grid_at, take_ids
+from swarm_ode_tpu_torch.utils.metrics import pick_rate, summarize_traj
 
 I32 = torch.int32
 
@@ -416,6 +426,7 @@ class Rollout:
     stucks: torch.Tensor  # (B,) int32
     replan_overflow: torch.Tensor  # (B,) int32
     trace: List[Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], EnvState]]
+    returns: torch.Tensor  # (B,) float32, rewards summed over agents and steps
 
 
 def heuristic_rollout(
@@ -441,6 +452,7 @@ def heuristic_rollout(
         return torch.zeros(B, dtype=I32, device=dev)
 
     deliveries, clashes, stucks, overflow = zeros(), zeros(), zeros(), zeros()
+    returns = torch.zeros(B, dtype=torch.float32, device=dev)
     trace = []
     for t in range(steps):
         actions, h = policy(params, es, h)
@@ -452,9 +464,10 @@ def heuristic_rollout(
         clashes += info["clashes"]
         stucks += info["stucks"]
         overflow += info["replan_overflow"]
+        returns += rewards.sum(1)
         if record:
             trace.append((actions, rewards, info, es))
-    return Rollout(es, h, deliveries, clashes, stucks, overflow, trace)
+    return Rollout(es, h, deliveries, clashes, stucks, overflow, trace, returns)
 
 
 def heuristic_episode(env, render: bool = False, seed=None):
@@ -476,8 +489,6 @@ def heuristic_episode(env, render: bool = False, seed=None):
     gen = torch.Generator(device=params.device).manual_seed(int(seed))
     out = heuristic_rollout(params, layout, 1, steps, gen, record=True)
     if render:
-        from swarm_ode_tpu_torch.env.rendering import render_state
-
         render_state(params, layout, out.state, mode="human")
     rewards = torch.stack([r[0] for _, r, _, _ in out.trace]).cpu().numpy()  # (T, A)
     infos = {
@@ -492,3 +503,235 @@ def heuristic_episode(env, render: bool = False, seed=None):
 
 
 heuristic_episode._unseeded_counter = 0
+
+
+# ---------------------------------------------------------------------------
+# The dispatcher's command lines: scripts/run_heuristic.py (`run`),
+# scripts/eval_parity.py (`parity`) and scripts/render_episode.py (`render`).
+
+MEDIUM = "tarware-medium-19agvs-9pickers-partialobs-v1"
+TINY = "tarware-tiny-3agvs-2pickers-partialobs-v1"
+
+# The per-episode stat line of scripts/run_heuristic.py:60-67, and a pattern
+# that reads either package's line back.
+_NUM = r"(-?[0-9.]+)"
+STAT_LINE = re.compile(
+    rf"Episode (?P<episode>\d+): \| \[Overall Pick Rate={_NUM}\]"
+    rf"\| \[Global return={_NUM}\]\| \[Total shelf deliveries={_NUM}\]"
+    rf"\| \[Total clashes={_NUM}\]\| \[Total stuck={_NUM}\] \| \[FPS = {_NUM}\]$"
+)
+STAT_FIELDS = ("overall_pick_rate", "global_episode_return", "total_deliveries",
+               "total_clashes", "total_stuck", "fps")
+
+# Reference xlsx statistics (mean, min, max over 30 episodes; SURVEY.md §6),
+# scripts/eval_parity.py's REFERENCE.
+PARITY_REFERENCE = {
+    "overall_pick_rate": (115.97, 84.96, 133.92),
+    "global_episode_return": (82.29, 57.5, 97.2),
+    "total_deliveries": (80.53, 59, 93),
+    "total_clashes": (170.77, 94, 642),
+    "total_stuck": (19.30, 5, 110),
+}
+
+
+def stat_line(episode: int, s: Dict, seconds: float) -> str:
+    """scripts/run_heuristic.py's line for one episode's summary `s`
+    (`summarize_traj`) that took `seconds` of wall time."""
+    return (
+        f"Episode {episode}: | [Overall Pick Rate={s['overall_pick_rate']:.2f}]"
+        f"| [Global return={s['global_episode_return']:.2f}]"
+        f"| [Total shelf deliveries={s['total_deliveries']:.2f}]"
+        f"| [Total clashes={s['total_clashes']:.2f}]"
+        f"| [Total stuck={s['total_stuck']:.2f}]"
+        f" | [FPS = {s['episode_length'] / seconds:.2f}]"
+    )
+
+
+def run_episode(params: EnvParams, layout: Layout, steps: int,
+                generator: Optional[torch.Generator] = None, state: Optional[EnvState] = None,
+                noise: Optional[Sequence[step_mod.StepNoise]] = None):
+    """One env (B = 1): a reset from `generator` (or `state`), then `steps`
+    of dispatcher + step with no host synchronisation, the trajectory read
+    back once at the end. Returns (rewards (T, A), info {key: (T, ...)}) as
+    numpy arrays, what `utils.metrics.summarize_traj` takes. Draws come from
+    `generator`, or from `noise[t]` at step t."""
+    es = state if state is not None else step_mod.reset(params, 1, generator)
+    _, _, (rewards, _, info) = rollout(params, make_policy(params, layout), init_state(params, 1),
+                                       es, steps, generator, noise)
+    return rewards[0].cpu().numpy(), {k: v[0].cpu().numpy() for k, v in info.items()}
+
+
+def parity_totals(params: EnvParams, layout: Layout, B: int, steps: int,
+                  generator: Optional[torch.Generator] = None, state: Optional[EnvState] = None,
+                  noise: Optional[Sequence[step_mod.StepNoise]] = None) -> Dict[str, np.ndarray]:
+    """scripts/eval_parity.py's per-episode sums: B envs in one batched
+    rollout of `steps` steps, summed per env on the device (the return over
+    agents and steps, deliveries, clashes, stucks; and the replan overflow)
+    and read back once, as (B,) numpy arrays."""
+    out = heuristic_rollout(params, layout, B, steps, generator, state, noise)
+    sums = {"global_episode_return": out.returns, "total_deliveries": out.deliveries,
+            "total_clashes": out.clashes, "total_stuck": out.stucks,
+            "replan_overflow": out.replan_overflow}
+    return {k: v.cpu().numpy() for k, v in sums.items()}
+
+
+def parity_report(totals: Dict[str, np.ndarray], steps: int) -> Tuple[List[str], Dict]:
+    """The reference's distribution beside ours: scripts/eval_parity.py's
+    table (lines) and the `detail` of its JSON line."""
+    ours = dict(totals, overall_pick_rate=pick_rate(1, steps) * totals["total_deliveries"])
+    lines = [f"{'metric':26s} {'reference mean (min-max)':>28s} {'ours mean (min-max)':>26s}"]
+    report = {}
+    for k, (rm, rlo, rhi) in PARITY_REFERENCE.items():
+        v = ours[k].astype(np.float64)
+        lines.append(
+            f"{k:26s} {rm:10.2f} ({rlo:.1f}-{rhi:.1f})"
+            f"{'':6s}{v.mean():10.2f} ({v.min():.1f}-{v.max():.1f})"
+        )
+        report[k] = {
+            "reference": {"mean": rm, "min": rlo, "max": rhi},
+            "ours": {"mean": round(float(v.mean()), 2), "min": round(float(v.min()), 2),
+                     "max": round(float(v.max()), 2)},
+        }
+    return lines, report
+
+
+def parity_config(env_id: str, replan_rejoin: bool = False, row_frac: Optional[float] = None):
+    """The env config `parity` runs: `env_id`'s, with scripts/eval_parity.py's
+    overrides of the replan rejoin and the compaction budget."""
+    cfg = EnvConfig.from_env_id(env_id)
+    if replan_rejoin or row_frac is not None:
+        cfg = dataclasses.replace(
+            cfg, replan_rejoin=replan_rejoin or cfg.replan_rejoin,
+            replan_row_frac=cfg.replan_row_frac if row_frac is None else row_frac,
+        )
+    return cfg
+
+
+def render_episode(params: EnvParams, layout: Layout, steps: int, every: int = 1,
+                   mode: str = "rgb_array", generator: Optional[torch.Generator] = None,
+                   state: Optional[EnvState] = None,
+                   noise: Optional[Sequence[step_mod.StepNoise]] = None) -> list:
+    """One env (B = 1) driven by the dispatcher for up to `steps` steps,
+    `render_state` of every `every`-th state from the reset on (before its
+    step), stopping after the step that ends the episode: the host loop of
+    scripts/render_episode.py (`done` read each step). Returns the frames
+    (None each in mode "human", drawn on screen)."""
+    policy = make_policy(params, layout)
+    es = state if state is not None else step_mod.reset(params, 1, generator)
+    h = init_state(params, 1)
+    frames = []
+    for t in range(steps):
+        if t % every == 0:
+            frames.append(render_state(params, layout, es, mode=mode))
+        actions, h = policy(params, es, h)
+        es, _, done, _ = step_mod.step(params, es, actions, generator=generator,
+                                       noise=None if noise is None else noise[t])
+        if bool(done[0]):
+            break
+    return frames
+
+
+def _env(cfg, device: str):
+    """(layout, params) of `cfg` on `device`; the card is required unless
+    the caller asks for the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("this command runs on the card (--device cuda) and none is "
+                           "available; pass --device cpu to run on the CPU")
+    layout = build_layout(cfg)
+    return layout, make_params(cfg, layout, device)
+
+
+def _run(args) -> List[Dict]:
+    cfg = EnvConfig.from_env_id(args.env_id)
+    layout, params = _env(cfg, args.device)
+    steps = cfg.max_steps or 500
+    if args.render:
+        gen = torch.Generator(device=params.device).manual_seed(args.seed)
+        render_episode(params, layout, steps, mode="human", generator=gen)
+        return []
+    episodes = []
+    for ep in range(args.num_episodes):
+        gen = torch.Generator(device=params.device).manual_seed(args.seed + ep)
+        start = time.perf_counter()
+        rewards, info = run_episode(params, layout, steps, gen)
+        seconds = time.perf_counter() - start
+        s = summarize_traj(rewards, info)
+        print(stat_line(ep, s, seconds), flush=True)
+        episodes.append(dict(s, seconds=seconds,
+                             replan_overflow=int(info["replan_overflow"].sum())))
+    return episodes
+
+
+def _parity(args) -> Dict[str, np.ndarray]:
+    import json
+
+    cfg = parity_config(args.env_id, args.replan_rejoin, args.row_frac)
+    layout, params = _env(cfg, args.device)
+    steps = cfg.max_steps or 500
+    gen = torch.Generator(device=params.device).manual_seed(args.seed)
+    totals = parity_totals(params, layout, args.episodes, steps, gen)
+    lines, report = parity_report(totals, steps)
+    print("\n".join(lines))
+    print(json.dumps({"metric": "parity_medium_30ep", "detail": report}), flush=True)
+    return totals
+
+
+def _render(args) -> int:
+    import matplotlib  # noqa: F401  (render_state's; fail before any env work)
+    from PIL import Image
+
+    cfg = EnvConfig.from_env_id(args.env_id)
+    layout, params = _env(cfg, args.device)
+    gen = torch.Generator(device=params.device).manual_seed(args.seed)
+    frames = [Image.fromarray(f)
+              for f in render_episode(params, layout, args.steps, args.every, generator=gen)]
+    frames[0].save(args.out, save_all=True, append_images=frames[1:], duration=120, loop=0)
+    print(f"wrote {args.out} ({len(frames)} frames)")
+    return len(frames)
+
+
+def main(argv=None):
+    """The dispatcher's command lines, each on `--device` (the card by
+    default; without one they raise). `run`: scripts/run_heuristic.py,
+    seeded episodes at B = 1 with its per-episode stat line (or a live view
+    with --render). `parity`: scripts/eval_parity.py, `--episodes` seeded
+    episodes as one batched rollout beside the reference's distribution.
+    `render`: scripts/render_episode.py, an episode as an animated GIF
+    (needs matplotlib and PIL). Returns what the command computed: `run`
+    each episode's summary, `parity` the per-episode sums, `render` the
+    number of frames."""
+    import argparse
+
+    fmt = argparse.ArgumentDefaultsHelpFormatter
+    p = argparse.ArgumentParser(description=main.__doc__)
+    sub = p.add_subparsers(dest="command", required=True)
+    r = sub.add_parser("run", formatter_class=fmt, help="heuristic evaluation episodes")
+    r.add_argument("--num_episodes", type=int, default=10)
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--render", action="store_true")
+    r.add_argument("--env_id", default=MEDIUM)
+    q = sub.add_parser("parity", formatter_class=fmt,
+                       help="the reference's 30-episode distribution beside ours")
+    q.add_argument("--env_id", default=MEDIUM)
+    q.add_argument("--episodes", type=int, default=30)
+    q.add_argument("--seed", type=int, default=0)
+    q.add_argument("--replan_rejoin", action="store_true",
+                   help="measure the replan-rejoin throughput lever's behavior distribution "
+                        "(config.py replan_rejoin)")
+    q.add_argument("--row_frac", type=float, default=None,
+                   help="override the batched-replan compaction budget (config.py "
+                        "replan_row_frac)")
+    v = sub.add_parser("render", formatter_class=fmt, help="an episode as an animated GIF")
+    v.add_argument("--env_id", default=TINY)
+    v.add_argument("--steps", type=int, default=120)
+    v.add_argument("--every", type=int, default=2, help="render every Nth step")
+    v.add_argument("--seed", type=int, default=0)
+    v.add_argument("--out", default="episode.gif")
+    for s in (r, q, v):
+        s.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    args = p.parse_args(argv)
+    return {"run": _run, "parity": _parity, "render": _render}[args.command](args)
+
+
+if __name__ == "__main__":
+    main()

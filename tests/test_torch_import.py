@@ -102,6 +102,33 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["swarm_ode_tpu_torch.policies.heuristic",
+                                    "swarm_ode_tpu_torch.data.dataset"])
+def test_command_lines_start_without_jax(module):
+    """`python -m <module> --help` for the port's own command lines (run,
+    parity, render; build-cache) in a fresh interpreter: runpy warns of
+    nothing (no module of the package imports the one it runs) and none
+    of FORBIDDEN is loaded."""
+    code = (
+        "import runpy, sys, warnings\n"
+        "warnings.simplefilter('error')\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines()[-1] == "ok" and "usage:" in res.stdout
+
+
 def test_convert_loads_no_trainer():
     """The interop layer (convert) loads the optimizer's state type and not
     the trainer above it, nor the dataset, checkpoint and logging modules
