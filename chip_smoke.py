@@ -184,8 +184,7 @@ Phases, one line of output each (any failure exits non-zero):
      steps of the main path (medium, B = 2048, dispatcher and step as two
      stages, block_on the env state); a stage around a device sleep reads
      at least the sleep (timed by CUDA events) with block_on and less
-     without it; device_throughput
-     of the 20-step loop beside phase 6's reading (no gate). One NCCL rank
+     without it. One NCCL rank
      on the card (a process group of world size 1 through a file store):
      make_mesh takes cuda:0, an all_reduce and a broadcast on the card;
      train_gde for one epoch on phase 9's episodes (its recipe, uint8
@@ -1040,8 +1039,7 @@ def phase_main_path(layout_cache):
     say("main-path", f"bitpack32 runs (steps/s, deliveries per env): "
         + ", ".join(f"({r:.1f}, {d:.3f})" for r, d in runs)
         + f"; int32, one run after the first: ({rate32:.1f}, {deliv32:.3f})")
-    best = max(r for r, _ in runs)
-    say("main-path", f"batched_env_steps_per_sec {best:.1f}")
+    say("main-path", f"batched_env_steps_per_sec {max(r for r, _ in runs):.1f}")
 
     # From one start state and one set of draws both kernels give identical
     # steps (these launches are a comparison and are not counted above).
@@ -1055,7 +1053,7 @@ def phase_main_path(layout_cache):
         fail("main-path", "int32 and bitpack32 rollouts differ")
     say("main-path", f"bfs_kernel=int32 vs bitpack32, B={BATCH}, 5 steps from one state "
         "with the same draws: states identical")
-    return by_setting, best
+    return by_setting
 
 
 def random_fields(H, W, K, seed, device, impassable=False):
@@ -3271,9 +3269,9 @@ def phase_export(layout_cache, smi):
         fail("export", "loaded GDE predictions differ from the eager predictor or the CPU")
     return k1, k4
 
-def phase_mesh(layout_cache, smi, main_path_rate: float):
+def phase_mesh(layout_cache, smi):
     """utils/profiling on the main path and one NCCL rank on the card:
-    StageTimer's stages, its block_on gate, device_throughput; train_gde
+    StageTimer's stages and its block_on gate; train_gde
     and run_mappo inside a one-rank process group against the runs without
     one, bit for bit. Returns {path: K1 launches} of the mesh MAPPO
     collection."""
@@ -3289,7 +3287,7 @@ def phase_mesh(layout_cache, smi, main_path_rate: float):
     from swarm_ode_tpu_torch.policies.heuristic import init_state, make_policy
     from swarm_ode_tpu_torch.rl import ppo
     from swarm_ode_tpu_torch.train import train_gde as tg
-    from swarm_ode_tpu_torch.utils.profiling import StageTimer, device_throughput
+    from swarm_ode_tpu_torch.utils.profiling import StageTimer
 
     t_phase = time.perf_counter()
     _, lay, pp = layout_cache["medium"]
@@ -3342,12 +3340,6 @@ def phase_mesh(layout_cache, smi, main_path_rate: float):
     if not (read["block_on"] >= slept["block_on"]
             and read["no block_on"] < slept["no block_on"]):
         fail("mesh", "StageTimer's block_on did not wait for the card")
-
-    rate = device_throughput(loop, (step_mod.reset(pp, BATCH, gen), init_state(pp, BATCH)),
-                             units=BATCH * MESH_STEPS, repeats=3)
-    say("mesh", f"device_throughput of {MESH_STEPS} steps of dispatcher + step at B={BATCH}: "
-        f"{rate:.1f} env steps/s (best of 3); phase 6's batched_env_steps_per_sec "
-        f"{main_path_rate:.1f} over {STEPS} steps; on {smi}")
 
     obs = record_episodes(pp, lay, TRAIN_ENVS, TRAIN_STEPS, seed=11)
     ds = TrajectoryDataset(episodes=list(obs), num_agvs=pp.num_agvs,
@@ -3606,7 +3598,7 @@ def main() -> None:
     query_times = phase_kernels(layouts, regs)
     k3_times, k3_err = phase_fields(layouts)
     k1_stochastic = phase_card_vs_cpu(layouts)
-    by_setting, main_path_rate = phase_main_path(layouts)
+    by_setting = phase_main_path(layouts)
     k3_launches = phase_full_field(layouts)
     k4_launches, k4 = phase_gde(layouts, smi)
     k4_training, k4_trained = phase_train(layouts, smi)
@@ -3617,7 +3609,7 @@ def main() -> None:
     k1_learn, _ = phase_learn_from_expert(layouts, smi)
     k1_recurrent, _ = phase_recurrent(layouts, smi)
     k1_export, k4_export = phase_export(layouts, smi)
-    k1_mesh = phase_mesh(layouts, smi, main_path_rate)
+    k1_mesh = phase_mesh(layouts, smi)
     k4_eval = phase_evaluate(layouts, smi, eval_episodes)
     k1_run, _ = phase_cli(smi)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -31,9 +31,9 @@ Ported so far:
   * learning from the dispatcher and on-policy MARL (`train/train_bc.py`,
     COMA, MAPPO in `rl/ppo.py`) and the recurrent models (`models/gru.py`,
     `train/train_baselines.py`, graph-GRU IQL);
-  * profiling (`utils/profiling.py`: `trace`, `StageTimer`,
-    `device_throughput`), `full_registration` below, and data parallelism
-    over torch.distributed (`parallel/mesh.py`): `train_gde`,
+  * profiling (`utils/profiling.py`: spans and counters inside the
+    program, `trace`, `StageTimer`), `full_registration` below, and data
+    parallelism over torch.distributed (`parallel/mesh.py`): `train_gde`,
     `train_baseline` and MAPPO's `mesh_devices` over one rank per device,
     and `entry.dryrun_multichip`, a dp x mp train step on gloo ranks;
   * trajectory-model evaluation (`analysis.py`): the metric suite,

@@ -38,6 +38,7 @@ from swarm_ode_tpu_torch.env.pathfinding import INF32, replan_query
 from swarm_ode_tpu_torch.env.queries import cell_max, grid_lookup, id_flags, occupant_grid
 from swarm_ode_tpu_torch.env.state import EnvParams, EnvState, agent_class
 from swarm_ode_tpu_torch.ops.take import grid_at, take_ids, take_many
+from swarm_ode_tpu_torch.utils.profiling import count, span, spanned
 
 I32 = torch.int32
 
@@ -215,6 +216,7 @@ def _replan_dist_nextdir(params: EnvParams, state: EnvState, occupied, targets_y
     return sdist, best_dir, sdist < INF32, no_overflow
 
 
+@spanned("env.step")
 def step(
     params: EnvParams,
     state: EnvState,
@@ -272,288 +274,298 @@ def step(
     occupied = ((agv_grid > 0) | (picker_grid > 0)).view(B, H, W)
 
     # ---------------- Phase 1a: target assignment (warehouse.py:358-376) ----
-    fixing = (state.agent_fixing_clash - 1).clamp(min=0)
-    was_busy = state.agent_busy
-    macro = macro_actions.to(I32)
-    tgt_idx_macro = (macro - 1).clamp(min=0)
-    start_dist = static_dist_at(params, tgt_idx_macro, cls, x, y)
-    can_start = (~was_busy) & (macro != 0) & (start_dist > 0) & (start_dist < INF32)
-    target = torch.where(was_busy, state.agent_target, 0)
-    target = torch.where(can_start, macro, target)
-    busy = was_busy | can_start
-    replan = state.agent_replan & was_busy
+    with span("env.step.targets"):
+        fixing = (state.agent_fixing_clash - 1).clamp(min=0)
+        was_busy = state.agent_busy
+        macro = macro_actions.to(I32)
+        tgt_idx_macro = (macro - 1).clamp(min=0)
+        start_dist = static_dist_at(params, tgt_idx_macro, cls, x, y)
+        can_start = (~was_busy) & (macro != 0) & (start_dist > 0) & (start_dist < INF32)
+        target = torch.where(was_busy, state.agent_target, 0)
+        target = torch.where(can_start, macro, target)
+        busy = was_busy | can_start
+        replan = state.agent_replan & was_busy
 
-    tgt_idx = (target - 1).clamp(min=0)
-    tgt_cell = params.action_cells[tgt_idx.long()]  # (B, A, 2) (y, x)
-    tgt_y, tgt_x = tgt_cell[..., 0], tgt_cell[..., 1]
+        tgt_idx = (target - 1).clamp(min=0)
+        tgt_cell = params.action_cells[tgt_idx.long()]  # (B, A, 2) (y, x)
+        tgt_y, tgt_x = tgt_cell[..., 0], tgt_cell[..., 1]
 
     # ---------------- Phase 1b statics + dynamic replan fields --------------
-    s_dist, s_nd = static_dist_nextdir(params, tgt_idx, cls, xy)
-    # Rows whose dynamic values this step can consume (the BFS compaction):
-    # replan followers, potential clash triggers (an agent stands on the
-    # forward cell) and stuck candidates.
-    fwd_x = x + _lookup(_DIR_DX, state.agent_dir)
-    fwd_y = y + _lookup(_DIR_DY, state.agent_dir)
-    fwd_occ = (
-        (x[:, None, :] == fwd_x[:, :, None]) & (y[:, None, :] == fwd_y[:, :, None])
-    ).any(dim=2)
-    need = replan | (busy & (fwd_occ | (state.stuck_count > STUCK_THRESHOLD)))
-    dyn_dist_at, dyn_nd_at, dyn_ok, replan_overflow = _replan_dist_nextdir(
-        params, state.replace(agent_target=target), occupied, tgt_cell, cls, xy, need
-    )
-    use_dyn = replan
-    d = torch.where(use_dyn, dyn_dist_at, s_dist)
-    nd = torch.where(use_dyn, dyn_nd_at, s_nd)
-    d = torch.where(busy, d, 0)
+    with span("env.step.replan"):
+        s_dist, s_nd = static_dist_nextdir(params, tgt_idx, cls, xy)
+        # Rows whose dynamic values this step can consume (the BFS compaction):
+        # replan followers, potential clash triggers (an agent stands on the
+        # forward cell) and stuck candidates.
+        fwd_x = x + _lookup(_DIR_DX, state.agent_dir)
+        fwd_y = y + _lookup(_DIR_DY, state.agent_dir)
+        fwd_occ = (
+            (x[:, None, :] == fwd_x[:, :, None]) & (y[:, None, :] == fwd_y[:, :, None])
+        ).any(dim=2)
+        need = replan | (busy & (fwd_occ | (state.stuck_count > STUCK_THRESHOLD)))
+        count("replan.rows_needed", need)
+        dyn_dist_at, dyn_nd_at, dyn_ok, replan_overflow = _replan_dist_nextdir(
+            params, state.replace(agent_target=target), occupied, tgt_cell, cls, xy, need
+        )
+        use_dyn = replan
+        d = torch.where(use_dyn, dyn_dist_at, s_dist)
+        nd = torch.where(use_dyn, dyn_nd_at, s_nd)
+        d = torch.where(busy, d, 0)
 
-    arrived = busy & (d == 0)
-    req = torch.full((B, A), int(Action.NOOP), dtype=I32, device=dev)
-    move_req = micro_toward(state.agent_dir, nd.clamp(min=0))
-    moving_now = busy & (d > 0) & (d < INF32) & (nd >= 0)
-    req = torch.where(moving_now, move_req, req)
-    req = torch.where(arrived & is_loader, int(Action.TOGGLE_LOAD), req)
-    # Pickers that finished their path simply become idle (warehouse.py:382-383).
-    busy = busy & ~(arrived & is_picker)
+        arrived = busy & (d == 0)
+        req = torch.full((B, A), int(Action.NOOP), dtype=I32, device=dev)
+        move_req = micro_toward(state.agent_dir, nd.clamp(min=0))
+        moving_now = busy & (d > 0) & (d < INF32) & (nd >= 0)
+        req = torch.where(moving_now, move_req, req)
+        req = torch.where(arrived & is_loader, int(Action.TOGGLE_LOAD), req)
+        # Pickers that finished their path simply become idle (warehouse.py:382-383).
+        busy = busy & ~(arrived & is_picker)
 
-    # Distance-travelled counters (warehouse.py:385-387).
-    followed = was_busy & ~arrived & (d < INF32)
-    agvs_distance = (followed & is_agv).sum(1, dtype=I32)
-    pickers_distance = (followed & is_picker).sum(1, dtype=I32)
+        # Distance-travelled counters (warehouse.py:385-387).
+        followed = was_busy & ~arrived & (d < INF32)
+        agvs_distance = (followed & is_agv).sum(1, dtype=I32)
+        pickers_distance = (followed & is_picker).sum(1, dtype=I32)
 
-    # Near-target logic for previously-busy agents (warehouse.py:388-404).
-    near = was_busy & (d == 1)
-    tgt_shelf = shelf_at(tgt_x, tgt_y)
-    abort_unload = near & (state.agent_carrying > 0) & (tgt_shelf > 0)
-    req = torch.where(abort_unload, int(Action.NOOP), req)
-    busy = busy & ~abort_unload
+        # Near-target logic for previously-busy agents (warehouse.py:388-404).
+        near = was_busy & (d == 1)
+        tgt_shelf = shelf_at(tgt_x, tgt_y)
+        abort_unload = near & (state.agent_carrying > 0) & (tgt_shelf > 0)
+        req = torch.where(abort_unload, int(Action.NOOP), req)
+        busy = busy & ~abort_unload
 
-    # Picker waits next to the shelf until its AGV is toggling there
-    # (warehouse.py:393-404).
-    tgt_agv = agv_at(tgt_x, tgt_y)
-    tgt_agv_req = torch.where(
-        tgt_agv > 0, take_ids(req, (tgt_agv - 1).clamp(min=0)), int(Action.NOOP)
-    )
-    agv_toggling = (tgt_agv > 0) & (tgt_agv_req == Action.TOGGLE_LOAD)
-    picker_near = near & is_picker
-    req = torch.where(picker_near & ~agv_toggling, int(Action.NOOP), req)
-    reset_stuck = can_start | (picker_near & agv_toggling)
+        # Picker waits next to the shelf until its AGV is toggling there
+        # (warehouse.py:393-404).
+        tgt_agv = agv_at(tgt_x, tgt_y)
+        tgt_agv_req = torch.where(
+            tgt_agv > 0, take_ids(req, (tgt_agv - 1).clamp(min=0)), int(Action.NOOP)
+        )
+        agv_toggling = (tgt_agv > 0) & (tgt_agv_req == Action.TOGGLE_LOAD)
+        picker_near = near & is_picker
+        req = torch.where(picker_near & ~agv_toggling, int(Action.NOOP), req)
+        reset_stuck = can_start | (picker_near & agv_toggling)
 
-    stuck_count = torch.where(reset_stuck, 0, state.stuck_count)
-    stuck_xy = torch.where(reset_stuck[..., None], xy, state.stuck_xy)
+        stuck_count = torch.where(reset_stuck, 0, state.stuck_count)
+        stuck_xy = torch.where(reset_stuck[..., None], xy, state.stuck_xy)
 
     # ---------------- Phase 1c: deadlock-break escape (option) --------------
-    agent_break = state.agent_break
-    if params.deadlock_break:
-        esc = agent_break > 0
-        ef_x = x + _lookup(_DIR_DX, state.agent_dir)
-        ef_y = y + _lookup(_DIR_DY, state.agent_dir)
-        inb = (ef_x >= 0) & (ef_x < W) & (ef_y >= 0) & (ef_y < H)
-        fwd_hw = inb & grid_at(params.highway, ef_y.clamp(0, H - 1), ef_x.clamp(0, W - 1))
-        r = noise.break_r
-        turn = torch.where(r == 2, int(Action.LEFT), int(Action.RIGHT)).to(I32)
-        esc_req = torch.where((r <= 1) & fwd_hw, int(Action.FORWARD), turn)
-        req = torch.where(esc, esc_req, req)
-        agent_break = torch.where(esc, agent_break - 1, agent_break)
+    with span("env.step.escape"):
+        agent_break = state.agent_break
+        if params.deadlock_break:
+            esc = agent_break > 0
+            ef_x = x + _lookup(_DIR_DX, state.agent_dir)
+            ef_y = y + _lookup(_DIR_DY, state.agent_dir)
+            inb = (ef_x >= 0) & (ef_x < W) & (ef_y >= 0) & (ef_y < H)
+            fwd_hw = inb & grid_at(params.highway, ef_y.clamp(0, H - 1), ef_x.clamp(0, W - 1))
+            r = noise.break_r
+            turn = torch.where(r == 2, int(Action.LEFT), int(Action.RIGHT)).to(I32)
+            esc_req = torch.where((r <= 1) & fwd_hw, int(Action.FORWARD), turn)
+            req = torch.where(esc, esc_req, req)
+            agent_break = torch.where(esc, agent_break - 1, agent_break)
 
     # ---------------- Phase 2: move-conflict resolution ---------------------
-    fwd_x = (x + _lookup(_DIR_DX, state.agent_dir)).clamp(0, W - 1)
-    fwd_y = (y + _lookup(_DIR_DY, state.agent_dir)).clamp(0, H - 1)
-    is_fwd = req == Action.FORWARD
-    req_x = torch.where(is_fwd, fwd_x, x)
-    req_y = torch.where(is_fwd, fwd_y, y)
-    mover = is_fwd & ((req_x != x) | (req_y != y))
+    with span("env.step.conflicts"):
+        fwd_x = (x + _lookup(_DIR_DX, state.agent_dir)).clamp(0, W - 1)
+        fwd_y = (y + _lookup(_DIR_DY, state.agent_dir)).clamp(0, H - 1)
+        is_fwd = req == Action.FORWARD
+        req_x = torch.where(is_fwd, fwd_x, x)
+        req_y = torch.where(is_fwd, fwd_y, y)
+        mover = is_fwd & ((req_x != x) | (req_y != y))
 
-    picker_at_req = picker_at(req_x, req_y)
-    agv_at_req = agv_at(req_x, req_y)
-    occ_same = torch.where(is_picker, picker_at_req, agv_at_req)
-    occ_other = torch.where(is_picker, agv_at_req, picker_at_req)
-    dest_hw = grid_at(params.highway, req_y, req_x)
-    block_same = occ_same > 0
-    block_other = (occ_other > 0) & dest_hw
-    occupied_block = mover & (block_same | block_other)
+        picker_at_req = picker_at(req_x, req_y)
+        agv_at_req = agv_at(req_x, req_y)
+        occ_same = torch.where(is_picker, picker_at_req, agv_at_req)
+        occ_other = torch.where(is_picker, agv_at_req, picker_at_req)
+        dest_hw = grid_at(params.highway, req_y, req_x)
+        block_same = occ_same > 0
+        block_other = (occ_other > 0) & dest_hw
+        occupied_block = mover & (block_same | block_other)
 
-    # Same-destination contention: on highway cells both layers contend; on
-    # rack cells only same-layer movers contend (cross-type may overlap).
-    contender = mover & ~occupied_block
-    elig = contender & (fixing == 0)
-    same_dest = (req_x[:, :, None] == req_x[:, None, :]) & (
-        req_y[:, :, None] == req_y[:, None, :]
-    )
-    layer_compat = (is_picker[:, None] == is_picker[None, :])[None] | dest_hw[:, :, None]
-    higher = aidx[None, :] > aidx[:, None]
-    yields = elig & (same_dest & layer_compat & higher & elig[:, None, :]).any(dim=2)
-    moved = contender & ~yields
+        # Same-destination contention: on highway cells both layers contend; on
+        # rack cells only same-layer movers contend (cross-type may overlap).
+        contender = mover & ~occupied_block
+        elig = contender & (fixing == 0)
+        same_dest = (req_x[:, :, None] == req_x[:, None, :]) & (
+            req_y[:, :, None] == req_y[:, None, :]
+        )
+        layer_compat = (is_picker[:, None] == is_picker[None, :])[None] | dest_hw[:, :, None]
+        higher = aidx[None, :] > aidx[:, None]
+        yields = elig & (same_dest & layer_compat & higher & elig[:, None, :]).any(dim=2)
+        moved = contender & ~yields
 
-    # Clash detection against the blocking occupant (warehouse.py:461-473).
-    occ_id = torch.where(block_same, occ_same, torch.where(block_other, occ_other, 0))
-    occ_i = (occ_id - 1).clamp(min=0)
-    has_occ = occupied_block & (occ_id > 0)
-    occ_req, occ_is_mover, occ_moved, occ_dest_x, occ_dest_y, occ_fixing = take_many(
-        occ_i, req, mover, moved, req_x, req_y, fixing
-    )
-    occ_rotating = (occ_req == Action.LEFT) | (occ_req == Action.RIGHT)
-    occ_heads_back = ((occ_dest_x == x) & (occ_dest_y == y)) | (
-        (occ_dest_x == req_x) & (occ_dest_y == req_y)
-    )
-    trigger = (
-        has_occ
-        & ~occ_rotating
-        & ~occ_moved
-        & (occ_fixing == 0)
-        & (~occ_is_mover | occ_heads_back)
-    )
-    clashes = trigger.sum(1, dtype=I32)
+        # Clash detection against the blocking occupant (warehouse.py:461-473).
+        occ_id = torch.where(block_same, occ_same, torch.where(block_other, occ_other, 0))
+        occ_i = (occ_id - 1).clamp(min=0)
+        has_occ = occupied_block & (occ_id > 0)
+        occ_req, occ_is_mover, occ_moved, occ_dest_x, occ_dest_y, occ_fixing = take_many(
+            occ_i, req, mover, moved, req_x, req_y, fixing
+        )
+        occ_rotating = (occ_req == Action.LEFT) | (occ_req == Action.RIGHT)
+        occ_heads_back = ((occ_dest_x == x) & (occ_dest_y == y)) | (
+            (occ_dest_x == req_x) & (occ_dest_y == req_y)
+        )
+        trigger = (
+            has_occ
+            & ~occ_rotating
+            & ~occ_moved
+            & (occ_fixing == 0)
+            & (~occ_is_mover | occ_heads_back)
+        )
+        clashes = trigger.sum(1, dtype=I32)
 
-    fixing = torch.where(yields, FIXING_CLASH_TIME, fixing)
-    fixing = torch.where(trigger & dyn_ok, FIXING_CLASH_TIME, torch.where(trigger, 0, fixing))
-    replan = replan | (trigger & dyn_ok)
-    req = torch.where(mover & ~moved, int(Action.NOOP), req)
+        fixing = torch.where(yields, FIXING_CLASH_TIME, fixing)
+        fixing = torch.where(trigger & dyn_ok, FIXING_CLASH_TIME, torch.where(trigger, 0, fixing))
+        replan = replan | (trigger & dyn_ok)
+        req = torch.where(mover & ~moved, int(Action.NOOP), req)
 
     # ---------------- Phase 3: stuck resolution (warehouse.py:486-519) ------
-    at_goal = grid_at(params.is_goal, y, x)
-    consider = (
-        busy
-        & (req != Action.LEFT)
-        & (req != Action.RIGHT)
-        & ((req != Action.TOGGLE_LOAD) | at_goal)
-    )
-    same_pos = (x == stuck_xy[..., 0]) & (y == stuck_xy[..., 1])
-    stuck_count = torch.where(
-        consider, torch.where(same_pos, stuck_count + 1, 0), stuck_count
-    )
-    stuck_xy = torch.where((consider & ~same_pos)[..., None], xy, stuck_xy)
+    with span("env.step.stuck"):
+        at_goal = grid_at(params.is_goal, y, x)
+        consider = (
+            busy
+            & (req != Action.LEFT)
+            & (req != Action.RIGHT)
+            & ((req != Action.TOGGLE_LOAD) | at_goal)
+        )
+        same_pos = (x == stuck_xy[..., 0]) & (y == stuck_xy[..., 1])
+        stuck_count = torch.where(
+            consider, torch.where(same_pos, stuck_count + 1, 0), stuck_count
+        )
+        stuck_xy = torch.where((consider & ~same_pos)[..., None], xy, stuck_xy)
 
-    upper = STUCK_THRESHOLD + params.column_height + 2
-    c1 = consider & (stuck_count > STUCK_THRESHOLD) & (stuck_count < upper)
-    c2 = consider & (stuck_count > upper)
+        upper = STUCK_THRESHOLD + params.column_height + 2
+        c1 = consider & (stuck_count > STUCK_THRESHOLD) & (stuck_count < upper)
+        c2 = consider & (stuck_count > upper)
 
-    req = torch.where(c1 | c2, int(Action.NOOP), req)
-    # c1, path nonempty: replan around agents if possible (warehouse.py:502-509)
-    c1_replan = c1 & ~arrived & dyn_ok
-    replan = replan | c1_replan
-    reset1 = c1_replan & (dyn_dist_at > 1)
-    stuck_count = torch.where(reset1, 0, stuck_count)
-    stuck_xy = torch.where(reset1[..., None], xy, stuck_xy)
-    # c1, path empty (toggling at goal, blocked): abandon (warehouse.py:510-513)
-    c1_abandon = c1 & arrived
-    busy = busy & ~c1_abandon
-    stuck_count = torch.where(c1_abandon, 0, stuck_count)
-    # c2: hard abandon (warehouse.py:514-519)
-    busy = busy & ~c2
-    stuck_count = torch.where(c2, 0, stuck_count)
-    stuck_xy = torch.where(c2[..., None], xy, stuck_xy)
-    stucks = c1_abandon.sum(1, dtype=I32) + c2.sum(1, dtype=I32)
-    if params.deadlock_break:
-        # Arm the escape on hard abandon and on "replanned but no detour".
-        no_detour = c1_replan & (dyn_dist_at >= INF32)
-        agent_break = torch.where(c2 | no_detour, params.deadlock_break, agent_break)
+        req = torch.where(c1 | c2, int(Action.NOOP), req)
+        # c1, path nonempty: replan around agents if possible (warehouse.py:502-509)
+        c1_replan = c1 & ~arrived & dyn_ok
+        replan = replan | c1_replan
+        reset1 = c1_replan & (dyn_dist_at > 1)
+        stuck_count = torch.where(reset1, 0, stuck_count)
+        stuck_xy = torch.where(reset1[..., None], xy, stuck_xy)
+        # c1, path empty (toggling at goal, blocked): abandon (warehouse.py:510-513)
+        c1_abandon = c1 & arrived
+        busy = busy & ~c1_abandon
+        stuck_count = torch.where(c1_abandon, 0, stuck_count)
+        # c2: hard abandon (warehouse.py:514-519)
+        busy = busy & ~c2
+        stuck_count = torch.where(c2, 0, stuck_count)
+        stuck_xy = torch.where(c2[..., None], xy, stuck_xy)
+        stucks = c1_abandon.sum(1, dtype=I32) + c2.sum(1, dtype=I32)
+        if params.deadlock_break:
+            # Arm the escape on hard abandon and on "replanned but no detour".
+            no_detour = c1_replan & (dyn_dist_at >= INF32)
+            agent_break = torch.where(c2 | no_detour, params.deadlock_break, agent_break)
 
     # ---------------- Phase 4: execute micro actions (warehouse.py:521-590) -
-    rewards = torch.full((B, A), -STEP_PENALTY, dtype=torch.float32, device=dev)
+    with span("env.step.move"):
+        rewards = torch.full((B, A), -STEP_PENALTY, dtype=torch.float32, device=dev)
 
-    do_fwd = req == Action.FORWARD
-    new_x = torch.where(do_fwd, req_x, x)
-    new_y = torch.where(do_fwd, req_y, y)
-    new_xy = torch.stack([new_x, new_y], dim=-1)
+        do_fwd = req == Action.FORWARD
+        new_x = torch.where(do_fwd, req_x, x)
+        new_y = torch.where(do_fwd, req_y, y)
+        new_xy = torch.stack([new_x, new_y], dim=-1)
 
-    wheel = _lookup(_DIR_TO_WHEEL, state.agent_dir)
-    new_wheel = torch.where(
-        req == Action.RIGHT,
-        (wheel + 1) % 4,
-        torch.where(req == Action.LEFT, (wheel - 1) % 4, wheel),
-    )
-    new_dir = _lookup(_WHEEL_TO_DIR, new_wheel)
-
-    toggling = req == Action.TOGGLE_LOAD
-    carrying = state.agent_carrying
-    picker_here = picker_at(x, y) > 0
-    here_shelf = shelf_at(x, y)
-    handler_ok = (is_agv & picker_here) | is_agent
-    # Load (warehouse.py:530-552)
-    wants_load = toggling & (carrying == 0)
-    can_load = wants_load & (here_shelf > 0) & handler_ok
-    load_fail = wants_load & (here_shelf == 0)
-    carrying = torch.where(can_load, here_shelf, carrying)
-    busy = busy & ~(can_load | load_fail)
-
-    # Unload (warehouse.py:554-577)
-    wants_unload = toggling & (state.agent_carrying > 0)
-    unload_blocked = wants_unload & (at_goal | (here_shelf > 0))
-    busy = busy & ~unload_blocked
-    can_unload = (
-        wants_unload & ~unload_blocked & ~grid_at(params.highway, y, x) & handler_ok
-    )
-    placed_shelf = torch.where(can_unload, state.agent_carrying, 0)
-    carrying = torch.where(can_unload, 0, carrying)
-    busy = busy & ~can_unload
-    has_delivered = state.agent_has_delivered & ~can_unload
-
-    # Handoff rewards (load or unload): the picker at the cell gets credit
-    # (or the AGENT itself).
-    handoff = can_load | can_unload
-    if params.reward_type == RewardType.GLOBAL:
-        rewards = rewards + handoff.sum(1, keepdim=True).to(torch.float32) * HANDOFF_REWARD_GLOBAL
-    elif params.reward_type == RewardType.INDIVIDUAL:
-        self_credit = handoff & is_agent
-        picker_credit_id = torch.where(handoff & is_agv, picker_at(x, y), 0)
-        rewards = rewards + self_credit.to(torch.float32) * HANDOFF_REWARD_INDIVIDUAL
-        credited = (
-            (picker_credit_id[:, None, :] == (aidx + 1)[None, :, None])
-            .to(torch.float32)
-            .sum(2)
+        wheel = _lookup(_DIR_TO_WHEEL, state.agent_dir)
+        new_wheel = torch.where(
+            req == Action.RIGHT,
+            (wheel + 1) % 4,
+            torch.where(req == Action.LEFT, (wheel - 1) % 4, wheel),
         )
-        rewards = rewards + credited * HANDOFF_REWARD_INDIVIDUAL
+        new_dir = _lookup(_WHEEL_TO_DIR, new_wheel)
 
-    # Shelf positions: a shelf follows the agent that placed it this step
-    # (warehouse.py:564) or carries it (:524-525). Row S is a sink for
-    # agents that hold no shelf.
-    moved_xy = torch.cat(
-        [state.shelf_xy, torch.zeros(B, 1, 2, dtype=I32, device=dev)], dim=1
-    )
-    carried_slot = torch.where(carrying > 0, carrying - 1, S).long()
-    moved_xy = moved_xy.scatter(1, carried_slot[..., None].expand(B, A, 2), new_xy)
-    placed_slot = torch.where(placed_shelf > 0, placed_shelf - 1, S).long()
-    moved_xy = moved_xy.scatter(1, placed_slot[..., None].expand(B, A, 2), xy)
-    shelf_xy = moved_xy[:, :S].contiguous()
+        toggling = req == Action.TOGGLE_LOAD
+        carrying = state.agent_carrying
+        picker_here = picker_at(x, y) > 0
+        here_shelf = shelf_at(x, y)
+        handler_ok = (is_agv & picker_here) | is_agent
+        # Load (warehouse.py:530-552)
+        wants_load = toggling & (carrying == 0)
+        can_load = wants_load & (here_shelf > 0) & handler_ok
+        load_fail = wants_load & (here_shelf == 0)
+        carrying = torch.where(can_load, here_shelf, carrying)
+        busy = busy & ~(can_load | load_fail)
+
+        # Unload (warehouse.py:554-577)
+        wants_unload = toggling & (state.agent_carrying > 0)
+        unload_blocked = wants_unload & (at_goal | (here_shelf > 0))
+        busy = busy & ~unload_blocked
+        can_unload = (
+            wants_unload & ~unload_blocked & ~grid_at(params.highway, y, x) & handler_ok
+        )
+        placed_shelf = torch.where(can_unload, state.agent_carrying, 0)
+        carrying = torch.where(can_unload, 0, carrying)
+        busy = busy & ~can_unload
+        has_delivered = state.agent_has_delivered & ~can_unload
+
+        # Handoff rewards (load or unload): the picker at the cell gets credit
+        # (or the AGENT itself).
+        handoff = can_load | can_unload
+        if params.reward_type == RewardType.GLOBAL:
+            rewards = rewards + (handoff.sum(1, keepdim=True).to(torch.float32)
+                                 * HANDOFF_REWARD_GLOBAL)
+        elif params.reward_type == RewardType.INDIVIDUAL:
+            self_credit = handoff & is_agent
+            picker_credit_id = torch.where(handoff & is_agv, picker_at(x, y), 0)
+            rewards = rewards + self_credit.to(torch.float32) * HANDOFF_REWARD_INDIVIDUAL
+            credited = (
+                (picker_credit_id[:, None, :] == (aidx + 1)[None, :, None])
+                .to(torch.float32)
+                .sum(2)
+            )
+            rewards = rewards + credited * HANDOFF_REWARD_INDIVIDUAL
+
+        # Shelf positions: a shelf follows the agent that placed it this step
+        # (warehouse.py:564) or carries it (:524-525). Row S is a sink for
+        # agents that hold no shelf.
+        moved_xy = torch.cat(
+            [state.shelf_xy, torch.zeros(B, 1, 2, dtype=I32, device=dev)], dim=1
+        )
+        carried_slot = torch.where(carrying > 0, carrying - 1, S).long()
+        moved_xy = moved_xy.scatter(1, carried_slot[..., None].expand(B, A, 2), new_xy)
+        placed_slot = torch.where(placed_shelf > 0, placed_shelf - 1, S).long()
+        moved_xy = moved_xy.scatter(1, placed_slot[..., None].expand(B, A, 2), xy)
+        shelf_xy = moved_xy[:, :S].contiguous()
 
     # ---------------- Phase 5: shelf deliveries (warehouse.py:592-619) ------
-    # Uses positions from the START of this step, like the reference.
-    goal_cells = (params.goals_yx[:, 0] * W + params.goals_yx[:, 1]).long()
-    goal_shelf = carried_grid[:, goal_cells]  # (B, G) carried shelf id at each goal
-    goal_agent = agv_grid[:, goal_cells]  # (B, G) AGV id at each goal
-    carried_now = id_flags(carrying, S)
-    in_q = id_flags(state.request_queue, S)
-    queue = state.request_queue
-    n_del = torch.zeros(B, dtype=I32, device=dev)
-    for g in range(params.num_goals):
-        shelf_id = goal_shelf[:, g]
-        agent_id = goal_agent[:, g]
-        s_idx = (shelf_id - 1).clamp(min=0).long()[:, None]
-        valid = (shelf_id > 0) & in_q.gather(1, s_idx)[:, 0]
-        # Replacement: uniform over shelves neither requested nor carried
-        # (warehouse.py:599-603), by gumbel-max.
-        cand = ~in_q & ~carried_now
-        gumbel = noise.delivery_gumbel[:, g]
-        new_shelf = torch.where(cand, gumbel, float("-inf")).argmax(dim=1).to(I32) + 1
-        slot = (queue == shelf_id[:, None]).to(torch.uint8).argmax(dim=1)
-        vq = valid[:, None]
-        queue = torch.where(vq, queue.scatter(1, slot[:, None], new_shelf[:, None]), queue)
-        in_q = torch.where(
-            vq,
-            in_q.scatter(1, s_idx, False).scatter(1, (new_shelf - 1).long()[:, None], True),
-            in_q,
-        )
-        a_idx = (agent_id - 1).clamp(min=0).long()[:, None]
-        credit = valid & (agent_id > 0)
-        first = credit & ~has_delivered.gather(1, a_idx)[:, 0]
-        has_delivered = torch.where(credit[:, None], has_delivered.scatter(1, a_idx, True), has_delivered)
-        gain = torch.where(first, DELIVERY_REWARD, 0.0).to(torch.float32)
-        if params.reward_type == RewardType.GLOBAL:
-            rewards = rewards + gain[:, None]
-        elif params.reward_type == RewardType.INDIVIDUAL:
-            rewards = rewards.scatter_add(1, a_idx, gain[:, None])
-        n_del = n_del + valid.to(I32)
-    request_queue = queue
+    with span("env.step.deliver"):
+        # Uses positions from the START of this step, like the reference.
+        goal_cells = (params.goals_yx[:, 0] * W + params.goals_yx[:, 1]).long()
+        goal_shelf = carried_grid[:, goal_cells]  # (B, G) carried shelf id at each goal
+        goal_agent = agv_grid[:, goal_cells]  # (B, G) AGV id at each goal
+        carried_now = id_flags(carrying, S)
+        in_q = id_flags(state.request_queue, S)
+        queue = state.request_queue
+        n_del = torch.zeros(B, dtype=I32, device=dev)
+        for g in range(params.num_goals):
+            shelf_id = goal_shelf[:, g]
+            agent_id = goal_agent[:, g]
+            s_idx = (shelf_id - 1).clamp(min=0).long()[:, None]
+            valid = (shelf_id > 0) & in_q.gather(1, s_idx)[:, 0]
+            # Replacement: uniform over shelves neither requested nor carried
+            # (warehouse.py:599-603), by gumbel-max.
+            cand = ~in_q & ~carried_now
+            gumbel = noise.delivery_gumbel[:, g]
+            new_shelf = torch.where(cand, gumbel, float("-inf")).argmax(dim=1).to(I32) + 1
+            slot = (queue == shelf_id[:, None]).to(torch.uint8).argmax(dim=1)
+            vq = valid[:, None]
+            queue = torch.where(vq, queue.scatter(1, slot[:, None], new_shelf[:, None]), queue)
+            in_q = torch.where(
+                vq,
+                in_q.scatter(1, s_idx, False).scatter(1, (new_shelf - 1).long()[:, None], True),
+                in_q,
+            )
+            a_idx = (agent_id - 1).clamp(min=0).long()[:, None]
+            credit = valid & (agent_id > 0)
+            first = credit & ~has_delivered.gather(1, a_idx)[:, 0]
+            has_delivered = torch.where(credit[:, None], has_delivered.scatter(1, a_idx, True),
+                                        has_delivered)
+            gain = torch.where(first, DELIVERY_REWARD, 0.0).to(torch.float32)
+            if params.reward_type == RewardType.GLOBAL:
+                rewards = rewards + gain[:, None]
+            elif params.reward_type == RewardType.INDIVIDUAL:
+                rewards = rewards.scatter_add(1, a_idx, gain[:, None])
+            n_del = n_del + valid.to(I32)
+        request_queue = queue
 
     cur_inactive = torch.where(n_del > 0, 0, state.cur_inactive + 1)
     cur_steps = state.cur_steps + 1

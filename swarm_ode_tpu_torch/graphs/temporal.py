@@ -23,6 +23,7 @@ import dataclasses
 import torch
 
 from swarm_ode_tpu_torch.ops.segment import adjacency_to_edges
+from swarm_ode_tpu_torch.utils.profiling import count
 
 
 @dataclasses.dataclass
@@ -138,5 +139,7 @@ def temporal_edges(g: BatchedTemporalGraph):
     B, W, N, _ = g.x.shape
     cap = edge_capacity(W, N)
     src, dst, valid = adjacency_to_edges(dense_adjacency(g), cap)  # (B, cap)
+    count("serve.edges_valid", valid)
+    count("serve.edge_slots", valid.numel())
     off = (torch.arange(B, device=src.device, dtype=torch.int32) * (W * N))[:, None]
     return (src + off).reshape(-1), (dst + off).reshape(-1), valid.reshape(-1)

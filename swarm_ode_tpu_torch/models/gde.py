@@ -24,6 +24,7 @@ from swarm_ode_tpu_torch.models.init import dense_init_
 from swarm_ode_tpu_torch.ops.odeint import odeint
 from swarm_ode_tpu_torch.ops.sage import HomoSAGE, edge_mean_aggregate, temporal_mean_aggregate
 from swarm_ode_tpu_torch.ops.segment_pallas import segment_plan
+from swarm_ode_tpu_torch.utils.profiling import span
 
 
 class GraphODEFunc(nn.Module):
@@ -103,7 +104,8 @@ class GraphODE(nn.Module):
         else:
             B, W, N, _ = graph.x.shape
             src, dst, valid = edges
-            plan = segment_plan(dst, valid, B * W * N, rows=src, num_rows=B * W * N)
+            with span("serve.plan"):
+                plan = segment_plan(dst, valid, B * W * N, rows=src, num_rows=B * W * N)
 
             def aggregate(h):
                 return edge_mean_aggregate(h, edges, plan)

@@ -16,6 +16,8 @@ import pathlib
 import shutil
 import subprocess
 
+from swarm_ode_tpu_torch.utils.profiling import setup_span
+
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -102,14 +104,16 @@ def build() -> pathlib.Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed)."""
+    """The loaded kernel library (built first if needed), its first load
+    under the set-up span `setup.kernel_library`."""
     global _library
     if _library is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with setup_span("setup.kernel_library"):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _library = lib
     return _library
 

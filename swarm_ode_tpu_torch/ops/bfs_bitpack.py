@@ -15,6 +15,7 @@ version is `bitpack_query_plain`.
 from __future__ import annotations
 
 from swarm_ode_tpu_torch.ops import bfs_pallas
+from swarm_ode_tpu_torch.utils.profiling import count
 
 # Launches of K1 (csrc/bfs_query.cu with the bit-packed query's row length).
 LAUNCHES = 0
@@ -58,6 +59,7 @@ def bitpack_query_call(occ, env, cls, base, tgt, pos, H: int, W: int, iters: int
     int32."""
     global LAUNCHES
     _, _, words = _plan(H, W)
+    count("replan.rows_run", env.shape[0])
     if occ.device.type == "cpu":
         pas = bfs_pallas._passable_rows(occ, env, cls, base, tgt, pos)
         return bitpack_query_plain(pas, tgt, pos, H, W, iters)

@@ -44,6 +44,7 @@ from swarm_ode_tpu_torch.env.rendering import render_state
 from swarm_ode_tpu_torch.env.state import EnvParams, EnvState, make_params
 from swarm_ode_tpu_torch.ops.take import grid_at, take_ids
 from swarm_ode_tpu_torch.utils.metrics import pick_rate, summarize_traj
+from swarm_ode_tpu_torch.utils.profiling import spanned
 
 I32 = torch.int32
 
@@ -141,6 +142,7 @@ def _sampled_argmin(d: torch.Tensor, g: torch.Tensor, temperature) -> torch.Tens
     return scores.argmax(dim=-1)
 
 
+@spanned("heuristic.policy")
 def heuristic_policy(
     params: EnvParams,
     zones: torch.Tensor,  # (L,) int32 picker index per rack cell (action order)

@@ -51,6 +51,7 @@ from swarm_ode_tpu_torch.graphs.hetero import hetero_graph_from_obs, masks_from_
 from swarm_ode_tpu_torch.graphs.temporal import build_temporal_batch, temporal_edges
 from swarm_ode_tpu_torch.models.gde import GraphODE
 from swarm_ode_tpu_torch.rl import coordination
+from swarm_ode_tpu_torch.utils.profiling import span
 
 
 class Policy(torch.nn.Module):
@@ -132,11 +133,15 @@ class GDEPredictor(torch.nn.Module):
         if single:
             obs, count = obs[None], count.reshape(1)
         t_span = torch.arange(self.horizon + 1, dtype=torch.float32, device=obs.device)
-        g = build_temporal_batch(obs, count, self.num_agvs, self.distance_threshold)
-        traj = self.model.apply_batched(g, t_span, edges=temporal_edges(g))["trajectories"]
-        B = obs.shape[0]
-        newest = (count.long() - 1).clamp(min=0)
-        out = traj[:, torch.arange(B, device=obs.device), newest].transpose(0, 1)
+        with span("serve.graph"):
+            g = build_temporal_batch(obs, count, self.num_agvs, self.distance_threshold)
+            edges = temporal_edges(g)
+        with span("serve.solve"):
+            traj = self.model.apply_batched(g, t_span, edges=edges)["trajectories"]
+        with span("serve.decode"):
+            B = obs.shape[0]
+            newest = (count.long() - 1).clamp(min=0)
+            out = traj[:, torch.arange(B, device=obs.device), newest].transpose(0, 1)
         return out[0] if single else out
 
 

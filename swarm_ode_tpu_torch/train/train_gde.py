@@ -53,6 +53,7 @@ from swarm_ode_tpu_torch.utils.checkpoint import CheckpointManager
 from swarm_ode_tpu_torch.utils.optim import (AdamWState, adamw_init, adamw_update,
                                              clip_by_global_norm)
 from swarm_ode_tpu_torch.utils.logging import MetricsLogger
+from swarm_ode_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -223,10 +224,12 @@ def window_batch(data, pairs, seq_len: int, horizon: int = 1, true_len=None,
     """The loss's batch for (B, 2) (episode, step) pairs on the device,
     cut from `data` ({'episodes', 'positions'} on the device), every window
     weighted 1; with `with_pos` the windows' positions as 'pos'."""
-    cut = _extract_windows(data["episodes"], data["positions"], seq_len, pairs[:, 0],
-                           pairs[:, 1], with_pos=with_pos, horizon=horizon, true_len=true_len)
-    batch = dict(zip(("obs", "count", "next_pos", "pos" if with_pos else "hweight"), cut))
-    batch["weight"] = torch.ones(pairs.shape[0], dtype=torch.float32, device=pairs.device)
+    with span("train.batch"):
+        cut = _extract_windows(data["episodes"], data["positions"], seq_len, pairs[:, 0],
+                               pairs[:, 1], with_pos=with_pos, horizon=horizon,
+                               true_len=true_len)
+        batch = dict(zip(("obs", "count", "next_pos", "pos" if with_pos else "hweight"), cut))
+        batch["weight"] = torch.ones(pairs.shape[0], dtype=torch.float32, device=pairs.device)
     return batch
 
 
@@ -268,9 +271,11 @@ def train_step(params: Sequence[torch.Tensor], opt_state: AdamWState, loss_fn, b
     device); nothing waits on the host. Where the batch is this rank's
     share (it carries `weight_total`), the loss and the gradients are
     first summed over the mesh's dp axis, in one collective."""
-    loss = loss_fn(batch)
-    grads = torch.autograd.grad(loss, params)
-    with torch.no_grad():
+    with span("train.forward"):
+        loss = loss_fn(batch)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, params)
+    with torch.no_grad(), span("train.optimizer"):
         if _shared(mesh, batch):
             *grads, loss = meshlib.all_reduce_sum(mesh, [*grads, loss])
         grads = clip_by_global_norm(grads, config.grad_clip)
